@@ -89,7 +89,30 @@ Phases (any failure raises and exits non-zero):
    `sharded_normal_equations` each against its one-device computation on
    the card; then two ranks on the one card over gloo, the port's
    all_reduce, all_gather and broadcast tried on CUDA tensors and what gloo
-   did with each printed.
+   did with each printed;
+12. the meshed path: (a) `multihost.initialize` with one NCCL rank, then the
+   standard mode on the default drive over all 24 frames with
+   `EvaluatorParams(mesh=make_mesh())`: trajectory.txt as phase 8's
+   unmeshed default-drive run (ids, timestamps, positions within 1e-3 px),
+   the ATE under its limit and within 1e-4 of that run's, the last motion
+   field within 1e-4 px/ms, keyframes within 1, and as many launches of
+   each splat kernel; wall and stage seconds beside the unmeshed run's;
+   (b) two gloo ranks on the one card (`multihost.launch`, a (1, 2) mesh:
+   gloo moves no point to point on CUDA tensors, and with one ``space``
+   rank the tile solve exchanges no halo), the standard mode on the
+   default drive over the first 12 frames: both ranks' trajectory.txt
+   byte-identical, each rank on the card with its splat launches counted,
+   its ATE under the limit, within twice that of phase 7's 12-frame
+   synchronous run and its keyframes within 1 of that run's; against that
+   run's tracks at least 90 % of the matched rows within 0.1 px and under
+   1 % of the rows unmatched, and the card moves a row's solve by at most
+   1e-4 px when the table is scanned as two blocks of 64 rows instead of
+   one of 128 (a rank's block rounds otherwise, so the two drift apart
+   and are not held to 1e-3 px); (c) `parity_worker` on the NCCL rank of (a), and
+   `measure_scaling_pipeline(counts=(1,))` in a rank of its own: the
+   sharded window scan's and tile solve's cost on one card beside the
+   unsharded calls; (d) `write_scaling_artifact` into a temporary path,
+   SCALING.json's bytes unchanged.
 
 ATE_OVER_MAX_DEPTH_LIMIT is 0.035, the upper end of the band the quality
 report quotes (0.0036-0.035), unless the JAX package's own standard mode on
@@ -671,11 +694,13 @@ def phase_pipelined(splat, dataset, dev, label: str, sync_stats: dict, sync: dic
                 or not any("warp_splat_bwd" in k for k, _, _ in r["seen"])):
             raise AssertionError(f"{name}: the splats were launched from {r['seen']}, not "
                                  "from the evo-comp thread on one stream of its own")
+        if name == "pipelined":
+            default_run = r
     stages = sync_stats["stage_s"]
     out["synchronous_max_stage_s"] = max(stages.values())
     out["synchronous_sum_stage_s"] = sum(stages.values())
     print(f"pipelined path ({label}): " + json.dumps(out), flush=True)
-    return out
+    return out, default_run
 
 
 def phase_tracks_window(splat, trajectories, window, dev, label: str) -> None:
@@ -1242,6 +1267,207 @@ def phase_mesh(splat, dataset, dev, label: str) -> dict:
     return out
 
 
+def mesh_rank(dataset, frames: int) -> dict:
+    """One rank of 12 (b): the standard mode on the default drive over the
+    first `frames` frames on a (1, n) mesh of the world's ranks, no device
+    given; its trajectory.txt, device, table rows, splat launches, keyframes
+    and ATE."""
+    import torch.distributed as dist
+
+    from evo_tpu_torch.dist import mesh
+    from evo_tpu_torch.kernels import splat
+    from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams
+
+    m = mesh.make_mesh(1, dist.get_world_size())
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = Evaluator(dataset, EvaluatorParams(mesh=m, output_dir=tmp))
+        splat.reset_counts()
+        t0 = time.perf_counter()
+        ev.run(max_frames=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(splat)
+        paths = ev.finish()
+        with open(paths["trajectory"], "rb") as f:
+            traj = f.read()
+        keyframes = len(np.loadtxt(paths["vo_trajectory"], ndmin=2))
+    ate = ev.vo.last_ate
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(), device=str(ev.device),
+                table_rows=ev.tracker.table.capacity, wall_s=wall, launches=launches,
+                stage_s=dict(ev.counters.times), keyframes=keyframes,
+                ate_over_max_depth=None if ate is None else ate.rmse / MAX_DEPTH_M,
+                trajectory=traj)
+
+
+def block_split_check(dev) -> dict:
+    """The window scan of a 128-row ready table on the card against the same
+    rows scanned as two blocks of 64, as two ranks hold them: how far the
+    card's batched kernels move a row's result with the batch's shape."""
+    from evo_tpu_torch.dist import multihost
+    from evo_tpu_torch.tracker import align
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    t = multihost._ready_table(np.random.default_rng(1), 128, 180, 240)
+    ex, ey, et, ep, mask, grads = multihost._scan_inputs(np.random.default_rng(2), 2, 2048,
+                                                         180, 240)
+    ev = [torch.as_tensor(a).to(dev) for a in (ex, ey, et, ep, mask)]
+    g = torch.as_tensor(grads).to(dev)
+    full, log = align.process_window_scan(ps.table_from_numpy(t, dev), g, *ev, g[0])
+    halves = [align.process_window_scan(
+        ps.table_from_numpy({k: v[s] for k, v in t.items()}, dev), g, *ev, g[0])
+        for s in (slice(0, 64), slice(64, 128))]
+    center = torch.cat([h[0].center for h in halves])
+    cost = torch.cat([h[1]["cost"] for h in halves], 1)
+    return dict(center_max_diff_px=(center - full.center).abs().max().item(),
+                cost_max_diff=(cost - log["cost"]).abs().max().item(),
+                bitwise=bool(torch.equal(center, full.center) and torch.equal(cost, log["cost"])))
+
+
+def compare_tracks(ref: np.ndarray, run: np.ndarray) -> dict:
+    """trajectory.txt rows of two runs, matched by (track id, timestamp)."""
+    a = {(int(r[0]), int(round(r[1] * 1e6))): r[2:] for r in ref}
+    b = {(int(r[0]), int(round(r[1] * 1e6))): r[2:] for r in run}
+    both = sorted(a.keys() & b.keys())
+    d = np.array([np.abs(a[k] - b[k]).max() for k in both])
+    return dict(rows=[len(ref), len(run)], unmatched=len(a.keys() ^ b.keys()),
+                tracks=[len({k[0] for k in a}), len({k[0] for k in b})],
+                max_diff_px=float(d.max()), median_diff_px=float(np.median(d)),
+                share_within_1e3=float(np.mean(d <= 1e-3)),
+                share_within_0_1=float(np.mean(d <= 0.1)))
+
+
+def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dict) -> dict:
+    """Phase 12: the meshed path, (a)-(d)."""
+    import hashlib
+    import io
+    import os
+
+    import torch.distributed as dist
+
+    from evo_tpu_torch.dist import mesh, multihost
+    from evo_tpu_torch.run.evaluator import EvaluatorParams
+
+    t_phase = time.perf_counter()
+    out = {}
+    ref = default_run
+    ref_stats = check_standard(ref, "the unmeshed default drive")
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize("file://" + os.path.join(tmp, "rendezvous"), 1, 0, device=dev)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the card's process group runs {dist.get_backend()}")
+            # (a) the slice at full width, one NCCL rank
+            run = run_standard(splat, dataset, EvaluatorParams(mesh=mesh.make_mesh()))
+            stats = check_standard(run, "the meshed default drive")
+            stats.update(check_same_tracks(ref, run, "the meshed default drive"))
+            if run["ev"].tracker.mesh is None or run["ev"].tracker.table.capacity != 128:
+                raise AssertionError("the meshed run's tracker holds no mesh")
+            if abs(stats["ate_over_max_depth"] - ref_stats["ate_over_max_depth"]) > 1e-4:
+                raise AssertionError(f"meshed ATE {stats['ate_over_max_depth']} against "
+                                     f"{ref_stats['ate_over_max_depth']} unmeshed")
+            if abs(stats["keyframes"] - ref_stats["keyframes"]) > 1:
+                raise AssertionError(f"meshed: {stats['keyframes']} keyframes, "
+                                     f"{ref_stats['keyframes']} unmeshed")
+            if run["launches"] != ref["launches"]:
+                raise AssertionError(f"meshed launches {run['launches']} against "
+                                     f"{ref['launches']} unmeshed")
+            stats["unmeshed"] = dict(wall_s=ref_stats["wall_s"], stage_s=ref_stats["stage_s"],
+                                     launches=ref_stats["launches"])
+            out["a"] = stats
+            print(f"meshed path, one NCCL rank, all frames ({label}): " + json.dumps(stats),
+                  flush=True)
+            # (c), first half: the parity check on this NCCL rank
+            t0 = time.perf_counter()
+            parity = multihost.parity_worker(dev)
+            if not (parity["ok"] and parity["device"].startswith("cuda")):
+                raise AssertionError(f"parity_worker on the card: {parity}")
+            parity["seconds"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+
+    # (b) two gloo ranks on the one card, a (1, 2) mesh. Each holds 64 rows,
+    # and the card's batched kernels round a row's solve by the batch's
+    # shape (block_split_check), which the tracker amplifies: the two ranks
+    # agree byte for byte, the unmeshed run to the bars below
+    t0 = time.perf_counter()
+    ranks = multihost.launch(mesh_rank, 2, (dataset, 12), device=dev, backend="gloo",
+                             timeout_s=300.0)
+    sync12_stats = check_standard(sync12, "the synchronous standard mode, 12 frames")
+    for r in ranks:
+        if not r["device"].startswith("cuda") or r["backend"] != "gloo" or r["table_rows"] != 64:
+            raise AssertionError(f"rank {r['rank']} ran on {r['device']} over "
+                                 f"{r['backend']} with {r['table_rows']} rows")
+        if r["trajectory"] != ranks[0]["trajectory"]:
+            raise AssertionError(f"rank {r['rank']}'s trajectory.txt is not rank 0's")
+        if min(r["launches"][k] for k in ("splat_fwd", "warp_splat_fwd", "warp_splat_bwd")) <= 0:
+            raise AssertionError(f"rank {r['rank']} launched {r['launches']}")
+        if not (r["ate_over_max_depth"] is not None
+                and r["ate_over_max_depth"] < ATE_OVER_MAX_DEPTH_LIMIT
+                and abs(r["keyframes"] - sync12_stats["keyframes"]) <= 1):
+            raise AssertionError(f"rank {r['rank']}: ATE {r['ate_over_max_depth']}, "
+                                 f"{r['keyframes']} keyframes")
+    tracks = compare_tracks(sync12["traj"], np.loadtxt(
+        io.StringIO(ranks[0]["trajectory"].decode()), ndmin=2))
+    # the bars: most matched rows within 0.1 px, under 1 % of the rows
+    # unmatched, the ATE within twice the unmeshed run's, and the rounding
+    # that explains the drift no larger than 1e-4 px
+    if not (tracks["share_within_0_1"] >= 0.9
+            and tracks["unmatched"] < 0.01 * max(tracks["rows"])):
+        raise AssertionError(f"two gloo ranks against the synchronous run: {tracks}")
+    for r in ranks:
+        if r["ate_over_max_depth"] > 2 * sync12_stats["ate_over_max_depth"]:
+            raise AssertionError(f"rank {r['rank']}: ATE {r['ate_over_max_depth']} against "
+                                 f"{sync12_stats['ate_over_max_depth']} unmeshed")
+    split = block_split_check(dev)
+    if split["center_max_diff_px"] > 1e-4:
+        raise AssertionError(f"a 128-row scan against two 64-row blocks: {split}")
+    out["b"] = dict(seconds=time.perf_counter() - t0, against_synchronous_12=tracks,
+                    block_split=split,
+                    ranks=[{k: v for k, v in r.items() if k != "trajectory"} for r in ranks],
+                    synchronous_12=dict(wall_s=sync12["wall"],
+                                        keyframes=sync12_stats["keyframes"],
+                                        ate_over_max_depth=sync12_stats["ate_over_max_depth"]))
+    print(f"meshed path, two gloo ranks on one card, 12 frames ({label}): "
+          + json.dumps(out["b"]), flush=True)
+
+    # (c), second half: the mesh code path's cost on one card
+    t0 = time.perf_counter()
+    pipe = multihost.measure_scaling_pipeline(counts=(1,), device=dev, timeout_s=300.0)
+    for kind, rows in pipe.items():
+        row = rows[1]
+        err = row.get("cost_max_abs_err", row.get("vel_max_abs_err"))
+        if not (err < 2e-3 and row["ms_sharded"] > 0 and row["ms_single"] > 0):
+            raise AssertionError(f"measure_scaling_pipeline {kind}: {row}")
+    out["c"] = dict(parity=parity, pipeline=pipe, pipeline_seconds=time.perf_counter() - t0)
+    print(f"meshed path, parity and the mesh's cost on one card ({label}): "
+          + json.dumps(out["c"]), flush=True)
+
+    # (d) the artifact goes where it is told, never to SCALING.json
+    t0 = time.perf_counter()
+    scaling_json = os.path.join(os.path.dirname(os.path.abspath(__file__)), "SCALING.json")
+
+    def digest():
+        if not os.path.exists(scaling_json):
+            return None
+        with open(scaling_json, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = digest()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scaling.json")
+        art = multihost.write_scaling_artifact(path, counts=(1,), device=dev, timeout_s=300.0)
+        if not os.path.exists(path) or not art["multiprocess"]["ok"]:
+            raise AssertionError(f"write_scaling_artifact: {art}")
+    if digest() != before:
+        raise AssertionError("write_scaling_artifact changed SCALING.json")
+    out["d"] = dict(seconds=time.perf_counter() - t0, scaling=art["scaling"],
+                    device_kind=art["device_kind"])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"meshed path, scaling artifact ({label}): " + json.dumps(out["d"]), flush=True)
+    print(f"phase 12 took {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1272,7 +1498,8 @@ def main() -> int:
     large = phase_large_tiles(splat, window, dev)
     phase_tracks_window(splat, trajectories, window, dev, label)
     vo_stats, sync, sync12 = phase_standard_mode(splat, dataset, dev, label)
-    pipe_stats = phase_pipelined(splat, dataset, dev, label, vo_stats, sync, sync12)
+    pipe_stats, default_run = phase_pipelined(splat, dataset, dev, label, vo_stats, sync,
+                                              sync12)
     t0 = time.perf_counter()
     phase_runtime_extras(splat, dataset, dev, label, sync, trajectories)
     print(f"run-time extras took {time.perf_counter() - t0:.2f} s; the smoke so far "
@@ -1286,6 +1513,8 @@ def main() -> int:
     phase_mesh(splat, dataset, dev, label)
     print(f"temporal batching and the mesh took {time.perf_counter() - t0:.2f} s; the smoke "
           f"so far {time.perf_counter() - t_start:.2f} s", flush=True)
+    meshed = phase_meshed(splat, dataset, dev, label, default_run, sync12)
+    print(f"the smoke so far {time.perf_counter() - t_start:.2f} s", flush=True)
 
     # each entry at the shape its path gives it; the other shapes are printed
     # above. The generic entries serve what the fused ones do not: the count
@@ -1304,6 +1533,7 @@ def main() -> int:
             launches=large[name] if name == "splat_bwd" else stats["launches"][name],
             launches_standard_mode=vo_stats["launches"][name],
             launches_pipelined=pipe_stats["pipelined"]["launches"][name],
+            launches_mesh=meshed["a"]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=at["shape"],
             ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
             bound_by=at["bound_by"], library_ms=at["library_ms"],

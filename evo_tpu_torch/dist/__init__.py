@@ -9,12 +9,20 @@ arrays on every rank, as a `shard_map` caller does, computes its own block
 and returns the replicated global result. A sharded function called without
 an initialised process group raises.
 
+The mesh reaches the production path through `EvaluatorParams(mesh=...)`:
+the tracker holds its block of the patch table's rows
+(`tracker.detector.EventTracker(mesh=)`, the sharded window scan and fused
+frame step, the policy on `tracker.policy.gathered_view`), and compensation
+solves its tile columns over ``space`` on process groups of its own.
+
 - `temporal`: W compensation windows solved at once (one card, or windows
   over the `batch` axis);
-- `mesh`: the (space, batch) mesh and its placements;
+- `mesh`: the (space, batch) mesh, its placements, the tracker's group
+  (`table_group`), compensation's (`fork_mesh`) and the row gather;
 - `halo`: boundary strips exchanged between `space` neighbours;
 - `tiling`: the batch-sharded splat and patch solve, the space-sharded
   contrast-max tile solve;
 - `reduce`: the BA normal equations reduced over `batch`;
-- `multihost`: process-group set-up and a launcher of local ranks.
+- `multihost`: process-group set-up, a launcher of local ranks, the
+  cross-process parity check and the scaling measurements.
 """

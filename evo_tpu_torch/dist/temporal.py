@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from evo_tpu_torch.core.device import resolve
 from evo_tpu_torch.core.transfer import HostCopy
-from evo_tpu_torch.dist.mesh import BATCH_AXIS, axis_size, block
+from evo_tpu_torch.dist.mesh import BATCH_AXIS, all_gather_cat, axis_size, block
 from evo_tpu_torch.tracker import compensate as comp
 
 
@@ -57,8 +57,6 @@ def compensate_windows_batched(windows, params=None, height: int = 180,
     the host, in window order: each window's result is that of
     `compensate.compensate_window` on it (up to the summation order the
     padding changes), copied to the host in one `HostCopy`."""
-    from evo_tpu_torch.dist.tiling import all_gather_cat
-
     p = params or comp.CompensateParams()
     dev = resolve(device)
     built = [comp.build_tile_data(x, y, t_us, p, height, width, dev)

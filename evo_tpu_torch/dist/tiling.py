@@ -29,21 +29,13 @@ import torch
 import torch.distributed as dist
 
 from evo_tpu_torch.core.device import resolve
-from evo_tpu_torch.dist.mesh import BATCH_AXIS, SPACE_AXIS, axis_index, axis_size, block
+from evo_tpu_torch.dist.mesh import (BATCH_AXIS, SPACE_AXIS, all_gather_cat, axis_index,
+                                     axis_size, block)
 from evo_tpu_torch.kernels.splat import splat_image
 
 
 def _f32(a, device):
     return torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
-
-
-def all_gather_cat(t, group, dim: int = 0):
-    """The blocks `t` of every rank of `group` concatenated along `dim`, in
-    the group's rank order (every rank's block has one shape)."""
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(group.size())]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim)
 
 
 def sharded_splat(mesh, x, y, weight, height: int, width: int, *,

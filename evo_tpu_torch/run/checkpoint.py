@@ -44,7 +44,8 @@ def state_dict(ev: Evaluator) -> dict:
     ev.flush_pending()
     ev.sync_vo()
     tr = ev.tracker
-    state = {f"table.{k}": v for k, v in ps.table_to_numpy(tr.table).items()}
+    # the whole table, every rank's block under a mesh (a collective)
+    state = {f"table.{k}": v for k, v in ps.table_to_numpy(tr.global_table()).items()}
     state["tracker.grads"] = _np(tr.grads)
     state["tracker.slot_refcount"] = tr.slot_refcount.copy()
     state["tracker.slot_birth"] = tr.slot_birth.copy()
@@ -118,8 +119,9 @@ def restore_into(ev: Evaluator, state: dict) -> Evaluator:
     meta = json.loads(bytes(state["meta"]).decode())
     tr = ev.tracker
     tmeta = meta["tracker"]
-    tr.table = ps.table_from_numpy(
-        {k: state[f"table.{k}"] for k in ps.FIELDS}, device=ev.device)
+    # the whole table; under a mesh the rank keeps its block of it
+    tr.set_global_table(ps.table_from_numpy(
+        {k: state[f"table.{k}"] for k in ps.FIELDS}, device=ev.device))
     # both allocators resume from the same counter, the larger of the two
     unified_tid = max(tmeta["next_track_id"], tmeta.get("pstate_next_tid", 0))
     tr.load_numpy_state(

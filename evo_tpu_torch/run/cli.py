@@ -127,7 +127,7 @@ def main(argv=None) -> int:
                 p = fn(os.path.join(out_dir, f"{name}.png"), ev.vo)
                 if p:
                     paths[name] = p
-        if bool(ev.tracker.table.alive.any()):
+        if ev.tracker.host_mirror()["alive"].any():
             paths.update(viz.save_patch_views(out_dir, ev.tracker))
     dt = time.perf_counter() - t0
     if args.dump_images and ev.compensated_image is not None:

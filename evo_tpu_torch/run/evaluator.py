@@ -42,6 +42,23 @@ launch over all N windows' tiles per LM iteration), on either drive; the
 remainder is solved at `flush_pending`. Each window's result is that of its
 cold solve alone. Every batch's future is read, so a failed batch ends
 `run()`.
+
+With `mesh` (a `dist.mesh.make_mesh` mesh over the ranks of an initialised
+process group, `dist.multihost.initialize`) every rank runs the same
+evaluator over the same dataset: the tracker holds its block of the patch
+table's rows (`EventTracker(mesh=)`), the contrast windows' tile columns are
+solved over ``space`` (`compensate_window(mesh=)`) and temporal batches'
+windows over ``batch`` (`compensate_windows_batched(mesh=)`), on either
+drive, with the artifacts of the unmeshed run; each rank writes them into
+its own `output_dir`. Compensation runs on a fork of the mesh
+(`dist.mesh.fork_mesh`), process groups of its own, so the evo-comp thread's
+collectives never share a communicator with the tracker's on the main
+thread. The two threads still issue them concurrently, in an order that may
+differ from rank to rank. That is shown safe on gloo ranks and on one NCCL
+rank; over more than one NCCL rank, where NCCL documents that communicators
+driven concurrently can deadlock, the evaluator refuses compensation on the
+worker (`_check_collective_threads`): pass `pipelined=False` and
+`temporal_batch=0` there.
 """
 
 from __future__ import annotations
@@ -57,6 +74,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from evo_tpu_torch.core import device as _device
 from evo_tpu_torch.io.replay import FrameWindowIterator
@@ -73,8 +91,8 @@ _log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class EvaluatorParams:
-    """The JAX package's EvaluatorParams without its mesh field, with the
-    same names and defaults, but for `output_dir`."""
+    """The JAX package's EvaluatorParams, with the same names and defaults,
+    but for `output_dir`."""
 
     # the artifacts' directory; None: a new temporary directory of the run's
     # own (the JAX package's default is the shared /tmp)
@@ -88,6 +106,10 @@ class EvaluatorParams:
     # "tracks": dense field interpolated from the feature tracks
     # (tracker.motion_field)
     compensation_mode: str = "contrast"
+    # a (space, batch) `dist.mesh.make_mesh` mesh: the patch table's rows
+    # split over all its ranks, the contrast tile solve's columns over
+    # ``space``, temporal batches' windows over ``batch`` (module docstring)
+    mesh: object = None
     # the pipelined drive (standard mode only; see the module docstring)
     pipelined: bool = True
     # at most this many frame windows dispatched and not yet consumed: host
@@ -131,8 +153,23 @@ class Evaluator:
         self.dataset = dataset
         self.height = dataset.calib.height if dataset.calib else 180
         self.width = dataset.calib.width if dataset.calib else 240
+        self.pipelined = (self.params.pipelined and not self.params.vo_experiment
+                          and not self.params.tracker_experiment)
+        if self.params.mesh is not None:
+            mesh = self.params.mesh
+            _check_collective_threads(
+                dist.get_backend(mesh.get_group(0)), mesh.mesh.numel(),
+                self.params.run_compensation
+                and self.params.compensation_mode == "contrast"
+                and (self.pipelined or self.params.temporal_batch > 0))
         self.tracker = EventTracker(self.params.tracker, self.height, self.width,
-                                    device=self.device)
+                                    device=self.device, mesh=self.params.mesh)
+        # compensation's own process groups (see the module docstring)
+        self._comp_mesh = None
+        if self.params.mesh is not None:
+            from evo_tpu_torch.dist.mesh import fork_mesh
+
+            self._comp_mesh = fork_mesh(self.params.mesh)
         self.vo = (
             VisualOdometryFrontEnd(dataset.calib, self.params.vo, device=self.device)
             if dataset.calib is not None
@@ -140,8 +177,6 @@ class Evaluator:
         )
         if self.vo is not None and len(dataset.gt_t_us):
             self.vo.set_ground_truth(dataset.gt_t_us, dataset.gt_poses)
-        self.pipelined = (self.params.pipelined and not self.params.vo_experiment
-                          and not self.params.tracker_experiment)
         self.image_num = 0
         self.counters = Counters()
         self._sync = stream_sync(self.device)
@@ -236,7 +271,8 @@ class Evaluator:
             return
         field, img, cost, cost0 = comp.compensate_window(
             xs, ys, ts, self.params.compensate, height=self.height,
-            width=self.width, v_init=self._comp_warm_vel, device=self.device)
+            width=self.width, v_init=self._comp_warm_vel, device=self.device,
+            mesh=self._comp_mesh)
         self._comp_warm_vel = field.reshape(-1, 2)
         self._take_compensation(field, img, cost, cost0)
         self.counters.add("compensation_windows")
@@ -258,7 +294,7 @@ class Evaluator:
                 with self.counters.timed("compensation_batched", stream_sync(self.device)):
                     results = temporal.compensate_windows_batched(
                         wins, self.params.compensate, height=self.height,
-                        width=self.width, device=self.device)
+                        width=self.width, mesh=self._comp_mesh, device=self.device)
             self.counters.add("compensation_windows", len(results))
             return results
 
@@ -296,7 +332,7 @@ class Evaluator:
                     out = comp.compensate_window(
                         xs, ys, ts, self.params.compensate, height=self.height,
                         width=self.width, v_init=self._comp_warm_vel,
-                        device=self.device, defer=True)
+                        device=self.device, defer=True, mesh=self._comp_mesh)
             self._comp_warm_vel = out.vel_dev
             self.counters.add("compensation_windows")
             return out
@@ -523,6 +559,17 @@ class Evaluator:
         out["final_cost"] = artifacts.save_final_costs(
             self.output_dir, self.tracker.final_cost_log)
         return out
+
+
+def _check_collective_threads(backend: str, n_ranks: int, comp_on_worker: bool) -> None:
+    """Refuse contrast compensation on the evo-comp thread over more than one
+    NCCL rank: its collectives and the tracker's on the main thread run on
+    two communicators at once, in an order that may differ between ranks,
+    which NCCL documents can deadlock. Gloo ranks and one NCCL rank run it."""
+    if comp_on_worker and backend == "nccl" and n_ranks > 1:
+        raise ValueError(
+            f"a mesh of {n_ranks} NCCL ranks runs compensation on the main thread "
+            "only: pass EvaluatorParams(pipelined=False, temporal_batch=0)")
 
 
 def _landmarks_of(mirror: dict) -> dict[int, np.ndarray]:

@@ -41,7 +41,7 @@ def render_feature_overlay(frame: np.ndarray, tracker, trail_len: int = 20):
     burned in, as an RGB array — the reference's main view."""
     h, w = frame.shape
     rgb = np.stack([_to_u8(frame)] * 3, axis=-1)
-    mirror = ps.host_mirror(tracker.table)
+    mirror = tracker.host_mirror()
     for i in np.flatnonzero(mirror["alive"]):
         cx, cy = mirror["center"][i]
         x0 = int(np.clip(cx - ps.PATCH_EXTENT, 0, w - 1))
@@ -74,10 +74,11 @@ def save_patch_views(out_dir: str, tracker, patch_idx: int = 0) -> dict:
     """The per-patch debug views of row `patch_idx`: integrated nabla,
     predicted nabla, cost map. Returns {name: path}."""
     os.makedirs(out_dir, exist_ok=True)
+    table = tracker.global_table()
     views = {
-        "integrated_nabla": align.integrate_events(tracker.table)[patch_idx],
-        "predicted_nabla": align.predicted_nabla(tracker.table, tracker.grads)[patch_idx],
-        "cost_map": align.cost_map(tracker.table, tracker.grads, patch_idx),
+        "integrated_nabla": align.integrate_events(table)[patch_idx],
+        "predicted_nabla": align.predicted_nabla(table, tracker.grads)[patch_idx],
+        "cost_map": align.cost_map(table, tracker.grads, patch_idx),
     }
     return {name: save_gray(os.path.join(out_dir, f"{name}.png"), v.cpu().numpy())
             for name, v in views.items()}

@@ -183,11 +183,13 @@ class HealthMonitor:
         longer the mirror's is left alone."""
         if not bad.any():
             return
+        # `bad` and `track_id` are global [P]; under a mesh the tracker's
+        # table is this rank's block of rows, and the rank kills its rows
         table = tracker.table
-        bad_dev = torch.as_tensor(bad).to(table.alive.device)
+        bad_dev = torch.as_tensor(tracker.local_rows(bad)).to(table.alive.device)
         if track_id is not None:
-            bad_dev = bad_dev & (table.track_id == torch.as_tensor(track_id).to(
-                table.track_id.device))
+            bad_dev = bad_dev & (table.track_id == torch.as_tensor(
+                tracker.local_rows(track_id)).to(table.track_id.device))
         tracker.table = table.replace(alive=table.alive & ~bad_dev)
         self.recovered_patches += int(bad.sum())
 

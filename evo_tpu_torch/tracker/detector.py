@@ -20,6 +20,17 @@ Counterpart of `evo_tpu/tracker/detector.py`:
 
 Array math runs on the table's device; the host policy and the artifact logs
 are host numpy over [P]-sized mirrors.
+
+With `mesh` (a `dist.mesh.make_mesh` mesh; every rank runs the same tracker
+on the same input) each rank holds its block of the table's rows, in the
+JAX package's block order (lin = space_index · n_batch + batch_index), and
+replicas of the gradient store and the policy state. The window scan runs
+on the block (`sharded_window_scan`) and the fused frame window on the block
+with the policy on the gathered view (`sharded_fused_step`); every log, and
+every host reader of the table (the mirrors, `global_table`), gets the
+global rows from one `all_gather` over the tracker's own process group
+(`dist.mesh.table_group`). So the host state every rank derives from them
+(track ids, archive, trajectories) is the same on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch
 from evo_tpu_torch.core import device as _device
 from evo_tpu_torch.core.transfer import HostCopy
 from evo_tpu_torch.core.types import US_PER_S
+from evo_tpu_torch.dist import mesh as dmesh
 from evo_tpu_torch.kernels import gradients, harris, lk
 from evo_tpu_torch.tracker import align, policy
 from evo_tpu_torch.tracker import patch_state as ps
@@ -170,17 +182,23 @@ def frame_apply(table: ps.PatchTable, grads, new_grad, img, prev_img, dec: dict,
 
 FRAMELOG_MIRROR = ("alive", "track_id", "center", "grad_slot", "cur_t",
                    "num_of_events")
+# the policy's [P] decisions; a rank of a mesh applies its rows of them
+ROW_DECISIONS = ("evict", "new_mask", "new_tid", "new_center")
 
 
 def fused_window_core(table: ps.PatchTable, grads, pstate: policy.PolicyState,
-                      events, img, prev_img, *, with_lk, lk_levels, lk_radius,
-                      max_corners, quality_level, min_distance, block_size,
+                      events, img, prev_img, *, view_fn, slice_fn, with_lk, lk_levels,
+                      lk_radius, max_corners, quality_level, min_distance, block_size,
                       border, max_patches, association_distance):
     """One frame window with the policy on the device: the event-window scan
     (`events` = (ex, ey, et, ep, mask) [K, C], or None for a window without
     events), Harris + gradients, `policy.frame_policy`, and the table
     mutation. Writes the frame's gradient pair into `grads` in place.
-    Returns (table, pstate, stacked scan log or None, framelog)."""
+    `view_fn` gives the policy its (global) view of the table and `slice_fn`
+    maps the global [P] decisions onto this table's rows (`sharded_fused_step`:
+    `policy.gathered_view` and the rank's block, all rows without a mesh).
+    Returns (table, pstate, stacked scan log or None, framelog), the logs of
+    this table's rows."""
     corners_xy, corners_valid, new_grad = frame_analyze(
         img, max_corners=max_corners, quality_level=quality_level,
         min_distance=min_distance, block_size=block_size, border=border,
@@ -194,10 +212,11 @@ def fused_window_core(table: ps.PatchTable, grads, pstate: policy.PolicyState,
         table, stacked = align.process_window_scan(table, grads, *events, latest)
     dev = grads.device
     dec, pstate = policy.frame_policy(
-        policy.view_of(table), pstate,
+        view_fn(table), pstate,
         torch.as_tensor(corners_xy).to(dev), torch.as_tensor(corners_valid).to(dev),
         max_patches=max_patches, association_distance=association_distance,
     )
+    dec = dict(slot=dec["slot"], **{k: slice_fn(dec[k]) for k in ROW_DECISIONS})
     evict_tid = torch.where(dec["evict"], table.track_id,
                             torch.full_like(table.track_id, -1))
     table = frame_apply(table, grads, new_grad, img, prev_img, dec,
@@ -206,6 +225,50 @@ def fused_window_core(table: ps.PatchTable, grads, pstate: policy.PolicyState,
                     new_tid=dec["new_tid"], new_center=dec["new_center"],
                     **{k: getattr(table, k) for k in FRAMELOG_MIRROR})
     return table, pstate, stacked, framelog
+
+
+def _gather_parts(group, parts: dict) -> dict:
+    """{part: (dict of row-block tensors, their row axis)} -> {part: dict of
+    the global tensors}, all in one collective over `group`."""
+    flat = {f"{p}.{k}": v for p, (tree, _) in parts.items() for k, v in tree.items()}
+    dims = {f"{p}.{k}": d for p, (tree, d) in parts.items() for k in tree}
+    got = dmesh.gather_rows(flat, group, dims)
+    return {p: {k: got[f"{p}.{k}"] for k in tree} for p, (tree, _) in parts.items()}
+
+
+def sharded_window_scan(group, table: ps.PatchTable, grads, ex, ey, et, ep, mask,
+                        latest_grad, mirror=()):
+    """`align.process_window_scan` on this rank's block of the table rows,
+    with the events, the gradient store and the newest gradient slot
+    replicated; the stacked log [K, P_local] is gathered to the global
+    [K, P] over `group` (the JAX package's `_sharded_window_scan`, out_specs
+    P(None, axes)), and with it the global [P] rows of the post-scan table's
+    fields named in `mirror`. Patch solves are independent, so each row's
+    result is that of the one-device scan. `group` None (no mesh): the
+    block is the whole table and nothing is gathered. Returns (this rank's
+    block, global log, {field: global rows})."""
+    table, stacked = align.process_window_scan(table, grads, ex, ey, et, ep, mask,
+                                               latest_grad)
+    got = _gather_parts(group, dict(stacked=(stacked, 1),
+                                    mirror=({k: getattr(table, k) for k in mirror}, 0)))
+    return table, got["stacked"], got["mirror"]
+
+
+def sharded_fused_step(group, rows: slice, table: ps.PatchTable, grads, pstate,
+                       events, img, prev_img, **kw):
+    """`fused_window_core` on this rank's block `rows` of the table: the
+    policy reads the view gathered over `group` (`policy.gathered_view`), so
+    every rank computes the same global decisions and applies its own rows
+    of them; `grads` and `pstate` stay replicas. The scan log and the frame
+    log are gathered to the global [K, P] and [P] in one `all_gather` (the
+    JAX package's `_sharded_fused_step`). `group` None, `rows` all of them:
+    the one-device step. Returns (this rank's block, pstate, global scan log
+    or None, global frame log)."""
+    table, pstate, stacked, framelog = fused_window_core(
+        table, grads, pstate, events, img, prev_img,
+        view_fn=lambda t: policy.gathered_view(t, group), slice_fn=lambda a: a[rows], **kw)
+    got = _gather_parts(group, dict(framelog=(framelog, 0), stacked=(stacked or {}, 1)))
+    return table, pstate, got["stacked"] if stacked is not None else None, got["framelog"]
 
 
 class FrameHandle(HostCopy):
@@ -224,10 +287,12 @@ class FrameHandle(HostCopy):
 
 class EventTracker:
     """Owns the patch table, the gradient-slot store, track-id allocation
-    and the host artifact logs, on one device."""
+    and the host artifact logs, on one device. With `mesh`, the table's rows
+    are split over the mesh's ranks (see the module docstring): `table` is
+    this rank's block, `global_table()` and the mirrors the whole."""
 
     def __init__(self, params: TrackerParams | None = None, height: int = 180,
-                 width: int = 240, device=None):
+                 width: int = 240, device=None, mesh=None):
         self.params = params or TrackerParams()
         if not self.params.use_device_scan:
             raise NotImplementedError(
@@ -236,7 +301,18 @@ class EventTracker:
         self.height = height
         self.width = width
         cap = self.params.capacity
-        self.table = ps.empty_table(cap, device=self.device)
+        self.mesh = mesh
+        self._group = None
+        self._rows = slice(0, cap)
+        if mesh is not None:
+            self._group = dmesh.table_group(mesh)
+            n = self._group.size()
+            if cap % n:
+                raise ValueError(f"the table's {cap} rows do not split over the {n} "
+                                 "ranks of the mesh")
+            lin = dmesh.block_index(mesh)
+            self._rows = slice(lin * cap // n, (lin + 1) * cap // n)
+        self.table = ps.empty_table(self._rows.stop - self._rows.start, device=self.device)
         self.grads = torch.zeros((cap, 2, height, width), dtype=torch.float32,
                                  device=self.device)
         self.slot_refcount = np.zeros(cap, np.int64)
@@ -292,17 +368,19 @@ class EventTracker:
             border=ps.PATCH_EXTENT + 1,
         )
         corners = corners_xy[corners_valid]
-        mirror = ps.host_mirror(self.table)
+        mirror = self.host_mirror()
         self._archive_dead(mirror)
         self._dispatch_frame(t_us, img, new_grad, corners, mirror)
-        self._consume_framelog(t_us, ps.host_mirror(self.table))
+        self._consume_framelog(t_us, self.host_mirror())
 
     def _dispatch_frame(self, t_us: int, img, new_grad, corners: np.ndarray,
                         mirror: dict) -> None:
-        """Host policy, then the frame's table update."""
+        """Host policy on the global mirror, then the frame's table update
+        (of this rank's rows, under a mesh)."""
         p = self.params
         ctrl = self._frame_policy(t_us, corners, mirror)
-        dec = {k: torch.as_tensor(v).to(self.device) for k, v in ctrl.items()}
+        dec = {k: torch.as_tensor(v if k == "slot" else v[self._rows]).to(self.device)
+               for k, v in ctrl.items()}
         self.num_images += 1
         with_lk = self.prev_image is not None and self.num_images >= 2
         self.table = frame_apply(
@@ -402,10 +480,18 @@ class EventTracker:
         if len(t_us) == 0:
             return
         events, k = self._upload_window(t_us, x, y, pol)
-        self.table, stacked = align.process_window_scan(
-            self.table, self.grads, *events, self.grads[self._newest_slot])
-        self._log_scan({kk: v.cpu().numpy() for kk, v in stacked.items()}, k)
-        self._archive_dead(ps.host_mirror(self.table))
+        pulled = HostCopy(self._scan_and_mirror(events)).get()
+        self._log_scan(pulled["stacked"], k)
+        self._archive_dead(pulled["mirror"])
+
+    def _scan_and_mirror(self, events) -> dict:
+        """Scan a window (on this rank's rows, under a mesh) and return its
+        global stacked log and post-scan mirror, as device tensors gathered
+        in one collective."""
+        latest = self.grads[self._newest_slot]
+        self.table, stacked, mirror = sharded_window_scan(
+            self._group, self.table, self.grads, *events, latest, mirror=ps.MIRROR_FIELDS)
+        return dict(stacked=stacked, mirror=mirror)
 
     def _upload_window(self, t_us, x, y, pol):
         """Cut, pack and upload a window: ((ex, ey, et, ep, mask) [K, C] on
@@ -439,13 +525,13 @@ class EventTracker:
             min_distance=p.min_distance, block_size=p.block_size,
             border=ps.PATCH_EXTENT + 1,
         )
-        pull, k = {}, 0
+        k = 0
         if len(t_us):
             events, k = self._upload_window(t_us, x, y, pol)
-            self.table, pull["stacked"] = align.process_window_scan(
-                self.table, self.grads, *events, self.grads[self._newest_slot])
+            pull = self._scan_and_mirror(events)
+        else:
+            pull = dict(mirror=self._mirror_fields())
         # one read serves the scan log and the pre-frame mirror
-        pull["mirror"] = self._mirror_fields()
         pulled = HostCopy(pull).get()
         mirror = pulled.pop("mirror")
         self._archive_dead(mirror)
@@ -455,8 +541,35 @@ class EventTracker:
         # logged in time order whatever the number of windows in flight
         return int(img_t_us), FrameHandle({"mirror": self._mirror_fields()}, k, pulled)
 
+    # -- the global table (one block of it per rank under a mesh) ---------
+    def _gather(self, tree: dict) -> dict:
+        """The [P_local, ...] tensors of `tree`, this rank's rows, with the
+        global rows (one collective under a mesh; as they are without one)."""
+        return dmesh.gather_rows(tree, self._group)
+
     def _mirror_fields(self) -> dict:
-        return {k: getattr(self.table, k) for k in ps.MIRROR_FIELDS}
+        """The mirror's fields of the global table, as device tensors."""
+        return self._gather({k: getattr(self.table, k) for k in ps.MIRROR_FIELDS})
+
+    def host_mirror(self) -> dict:
+        """The small control fields of the global table as host numpy."""
+        return HostCopy(self._mirror_fields()).get()
+
+    def global_table(self) -> ps.PatchTable:
+        """The whole table: under a mesh, every rank's block in block order
+        (one collective, every rank must call it); else `table` itself."""
+        return ps.PatchTable(**self._gather(
+            {k: getattr(self.table, k) for k in ps.FIELDS}))
+
+    def set_global_table(self, table: ps.PatchTable) -> None:
+        """Take the whole table `table`: this rank keeps its block of rows."""
+        self.table = ps.PatchTable(**{k: self.local_rows(getattr(table, k))
+                                      for k in ps.FIELDS})
+
+    def local_rows(self, a):
+        """This rank's rows of a global [P, ...] array (all of them without a
+        mesh)."""
+        return a[self._rows]
 
     def _process_frame_window_fused(self, t_us, x, y, pol, img_t_us: int, img):
         """`process_frame_window` with the policy on the device: nothing of
@@ -466,15 +579,15 @@ class EventTracker:
         events, k = self._upload_window(t_us, x, y, pol) if len(t_us) else (None, 0)
         self.num_images += 1
         with_lk = self.prev_image is not None and self.num_images >= 2
-        self.table, self.pstate, stacked, framelog = fused_window_core(
-            self.table, self.grads, self.pstate, events, img,
-            self.prev_image if with_lk else img,
-            with_lk=with_lk, lk_levels=p.lk_levels, lk_radius=p.lk_radius,
-            max_corners=p.max_patches, quality_level=p.quality_level,
-            min_distance=p.min_distance, block_size=p.block_size,
-            border=ps.PATCH_EXTENT + 1, max_patches=p.max_patches,
-            association_distance=p.association_distance,
-        )
+        kw = dict(with_lk=with_lk, lk_levels=p.lk_levels, lk_radius=p.lk_radius,
+                  max_corners=p.max_patches, quality_level=p.quality_level,
+                  min_distance=p.min_distance, block_size=p.block_size,
+                  border=ps.PATCH_EXTENT + 1, max_patches=p.max_patches,
+                  association_distance=p.association_distance)
+        prev = self.prev_image if with_lk else img
+        self.table, self.pstate, stacked, framelog = sharded_fused_step(
+            self._group, self._rows, self.table, self.grads, self.pstate, events,
+            img, prev, **kw)
         self.prev_image = img
         out = {"framelog": framelog}
         if stacked is not None:

@@ -161,8 +161,3 @@ def newest_events(table: PatchTable):
 
 MIRROR_FIELDS = ("alive", "initialized", "track_id", "center", "ev_count",
                  "num_of_events", "grad_slot", "cur_t")
-
-
-def host_mirror(table: PatchTable) -> dict:
-    """The small control fields as host numpy arrays."""
-    return {k: getattr(table, k).cpu().numpy() for k in MIRROR_FIELDS}

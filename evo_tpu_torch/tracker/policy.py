@@ -24,6 +24,7 @@ import dataclasses
 import torch
 
 from evo_tpu_torch.core.device import resolve
+from evo_tpu_torch.dist.mesh import gather_rows
 from evo_tpu_torch.tracker import patch_state as ps
 
 
@@ -60,9 +61,16 @@ class TableView:
         return self.alive.shape[0]
 
 
-def view_of(table: ps.PatchTable) -> TableView:
-    return TableView(alive=table.alive, center=table.center,
-                     track_id=table.track_id, grad_slot=table.grad_slot)
+def gathered_view(table, group) -> TableView:
+    """The global [P] view from this rank's block of the table rows (a
+    `ps.PatchTable` or a `TableView`): one `all_gather` over `group`, whose
+    ranks are in block order (`dist.mesh.table_group`), so every rank holds
+    the same view and derives the same decisions from it. The JAX package
+    scatters each block into zeros and `psum`s them; the four fields travel
+    as int32 columns, bool as 0/1 (`dist.mesh.gather_rows`). `group` None:
+    the table's own fields, which are then all its rows."""
+    return TableView(**gather_rows(
+        {k: getattr(table, k) for k in ("alive", "center", "track_id", "grad_slot")}, group))
 
 
 def slot_refcounts(table, n_slots: int):

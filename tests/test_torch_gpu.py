@@ -469,3 +469,64 @@ def test_quarantine_on_card_keeps_healthy_rows(cuda_device):
     for k in ps.FIELDS:
         if k != "alive":
             assert after[k].tobytes() == before[k].tobytes(), k
+
+
+@pytest.mark.gpu
+def test_meshed_evaluator_on_card_matches_unmeshed(cuda_device, tmp_path):
+    """`EvaluatorParams(mesh=make_mesh())` over one NCCL rank, on the
+    synchronous and the default drive, against the unmeshed run of the same
+    drive, no device given: the one rank holds all 128 rows and solves what
+    the unmeshed run solves, in the same order, so the tracks, their
+    timestamps and the splat launches are the same and positions within
+    1e-3 px, the last motion field within 1e-4 px/ms."""
+    import torch.distributed as dist
+
+    from evo_tpu_torch.dist import mesh, multihost
+    from evo_tpu_torch.io import sim
+    from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams
+
+    ds = sim.to_dataset(sim.EventCameraSimulator(
+        sim.SimParams(duration_s=0.5, fps=20.0, seed=2)).generate())
+    multihost.initialize("file://" + str(tmp_path / "rendezvous"), 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        m = mesh.make_mesh()
+        for pipelined in (False, True):
+            runs = []
+            for grid in (None, m):
+                out = tmp_path / f"{pipelined}_{grid is not None}"
+                ev = Evaluator(ds, EvaluatorParams(
+                    output_dir=str(out), pipelined=pipelined, mesh=grid,
+                    compensate=compensate.CompensateParams(max_iters=5)))
+                splat.reset_counts()
+                ev.run()
+                ev.finish()
+                runs.append((ev, (splat.launches_fwd, splat.launches_warp_fwd,
+                                  splat.launches_warp_bwd)))
+            (a, la), (b, lb) = runs
+            assert b.tracker.mesh is m and b.tracker.table.alive.is_cuda
+            assert la == lb and la[1] > 0
+            assert set(a.tracker.trajectories) == set(b.tracker.trajectories)
+            for tid, entries in a.tracker.trajectories.items():
+                x, y = np.asarray(entries), np.asarray(b.tracker.trajectories[tid])
+                np.testing.assert_array_equal(x[:, 0], y[:, 0])
+                np.testing.assert_allclose(y[:, 1:], x[:, 1:], atol=1e-3)
+            np.testing.assert_allclose(b.motion_field, a.motion_field, atol=1e-4)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_parity_worker_in_two_gloo_ranks_on_card(cuda_device):
+    """`parity_worker` in two gloo ranks sharing the card (NCCL takes one rank
+    per card): the sharded decode and window scan on CUDA tensors against one
+    rank's computation, the JAX package's bars (2e-4, 2e-3)."""
+    from evo_tpu_torch.dist import multihost
+
+    ranks = multihost.launch(multihost.parity_worker, 2, (cuda_device,), device=cuda_device,
+                             backend="gloo", timeout_s=300.0)
+    assert [r["process_id"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert r["num_processes"] == 2 and r["backend"] == "gloo"
+        assert r["device"].startswith("cuda")
+        assert r["decode_max_abs_err"] < 2e-4 and r["scan_max_abs_err"] < 2e-3 and r["ok"], r

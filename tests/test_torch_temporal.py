@@ -187,7 +187,7 @@ def test_cli_runs_with_temporal_batch(square_dataset, tmp_path, monkeypatch):  #
 
     batches = []
 
-    def recording(windows, params, height, width, device=None):
+    def recording(windows, params, height, width, mesh=None, device=None):
         batches.append(len(windows))
         return [(np.zeros((9, 12, 2), np.float32), np.zeros((height, width), np.float32),
                  0.0, 0.0)] * len(windows)

@@ -177,6 +177,47 @@ def test_quality_row_matches_jax(tmp_path):
     assert row["frames"] == 8 and row["device"] == "cpu"
 
 
+@pytest.mark.slow
+def test_shapes_row_on_one_dataset_matches_jax(tmp_path):
+    """The `shapes` row's protocol (the tracker experiment on the 48-polygon
+    scene, no compensation, scored against the plane at 2 m) on the row's
+    full 6 s of stream, written once by the port's simulator and read by both
+    packages: the tolerances of `test_quality_row_matches_jax`. It settles
+    whether the port's row differs from `evo_tpu`'s only by its scene.
+
+    It fails, a recorded fault: ROADMAP.md §C item 2 gives the two rows
+    (`evo_tpu` 0.565 px and 3.328 s, the port 0.554 px and 3.324 s) and the
+    cause found, float32 rounding that the tracker amplifies."""
+    from evo_tpu.io import davis as jdavis
+    from evo_tpu.run.evaluator import Evaluator as JEvaluator
+    from evo_tpu.run.evaluator import EvaluatorParams as JParams
+
+    cfg = quality.suite_configs()["shapes"]
+    assert cfg["duration_s"] == 6.0 and cfg["tracker_experiment"]
+    out = sim.EventCameraSimulator(sim.SimParams(
+        duration_s=cfg["duration_s"], fps=20.0, seed=1, scene="shapes",
+        texture_cells=cfg["texture_cells"]), device="cpu").generate()
+    ds_dir = sim.write_dataset(str(tmp_path / "ds"), out)
+    row = quality.score_row("shapes", cfg, Davis240cDataset(ds_dir), str(tmp_path / "out"),
+                            device="cpu")
+    jds = jdavis.Davis240cDataset(ds_dir)
+    jev = JEvaluator(jds, JParams(output_dir=str(tmp_path / "jax"), run_compensation=False,
+                                  tracker_experiment=True))
+    jev.run()
+    jev.flush_pending()
+    q = jquality.evaluate_tracker(jev.tracker.trajectories, jds.gt_t_us, jds.gt_poses,
+                                  jds.calib, plane_depth=2.0, scene="plane")
+    print(f"shapes row, port: {row['feature_age_s']} s, {row['tracker_err_px']} px, "
+          f"{row['num_tracks']} tracks; evo_tpu: {q.mean_feature_age_s:.3f} s, "
+          f"{q.mean_distance_error_px:.3f} px, {q.num_tracks} tracks")
+    known = "a recorded fault, ROADMAP.md §C item 2"
+    assert row["num_tracks"] == q.num_tracks >= 20
+    assert row["tracker_err_px"] == pytest.approx(q.mean_distance_error_px, rel=1e-3,
+                                                  abs=2e-3), known
+    assert row["feature_age_s"] == pytest.approx(q.mean_feature_age_s, abs=1e-3), known
+    assert row["frames"] == 120 and row["device"] == "cpu"
+
+
 def test_quality_cli_needs_an_output_path(tmp_path, monkeypatch):
     """`python -m evo_tpu_torch.run.quality` has no default output, and
     writes each row's artifacts beside the JSON, under OUT_rows/<row>/."""

@@ -1,7 +1,11 @@
 """The rank side of tests/test_torch_dist.py: `run_cases` runs in each rank
 of a spawned gloo world (`evo_tpu_torch.dist.multihost.launch`) and returns
-its results as numpy arrays. It imports the port only, never JAX, and
-nothing of tests/ besides itself (a rank imports it anew)."""
+its results as numpy arrays (and, for the evaluator runs, the bytes of
+trajectory.txt). It imports the port only, never JAX, and nothing of tests/
+besides itself (a rank imports it anew)."""
+
+import shutil
+import tempfile
 
 import numpy as np
 import torch
@@ -93,6 +97,92 @@ def _placements(m, case):
                           mesh.space_sharded(m, 1))]
 
 
+def run_tracker(tr, windows) -> tuple[list, dict]:
+    """Feed `windows` [(t_us, x, y, pol, image_t_us, image)] through
+    `process_frame_window`, consuming each handle one window later, as the
+    pipelined drive does. Returns the post-frame mirrors and the
+    trajectories."""
+    mirrors, pending = [], None
+    for t_us, x, y, pol, img_t, img in windows:
+        if pending is not None:
+            mirrors.append(tr.consume_frame(*pending))
+        pending = tr.process_frame_window(t_us, x, y, pol, img_t, img)
+    mirrors.append(tr.consume_frame(*pending))
+    return mirrors, tr.trajectories
+
+
+def _fused_window(m, case, device_policy=True):
+    from evo_tpu_torch.tracker.detector import EventTracker, TrackerParams
+
+    tr = EventTracker(TrackerParams(device_policy=device_policy, sub_batch_events=256),
+                      180, 240, device=CPU, mesh=m)
+    mirrors, trajectories = run_tracker(tr, case["windows"])
+    return dict(mirrors=[{k: mr[k] for k in ("alive", "track_id", "center")}
+                         for mr in mirrors],
+                trajectories=trajectories, next_track_id=tr.next_track_id,
+                table_rows=tr.table.capacity)
+
+
+def evaluator_params(case, **kw):
+    """The evaluator parameters of tests/test_dist.py::TestDistributedPipeline
+    (case["params"]: compensation_events and CompensateParams' fields)."""
+    from evo_tpu_torch.run.evaluator import EvaluatorParams
+    from evo_tpu_torch.tracker.compensate import CompensateParams
+
+    p = dict(case["params"])
+    comp = CompensateParams(**p.pop("compensate"))
+    return EvaluatorParams(output_dir=tempfile.mkdtemp(prefix="evo_rank_"), compensate=comp,
+                           **p, **kw)
+
+
+def finish_run(ev) -> dict:
+    """Write the artifacts: trajectory.txt's bytes, the VO poses, the last
+    motion field, and what ran where."""
+    paths = ev.finish()
+    with open(paths["trajectory"], "rb") as f:
+        traj = f.read()
+    vo = np.loadtxt(paths["vo_trajectory"], ndmin=2) if "vo_trajectory" in paths else None
+    shutil.rmtree(ev.output_dir)
+    return dict(trajectory=traj, vo=vo, motion_field=ev.motion_field,
+                compensation_windows=int(ev.counters.counts["compensation_windows"]),
+                table_rows=ev.tracker.table.capacity, device=str(ev.device))
+
+
+def _evaluator_sync(m, case):
+    """The synchronous drive on the mesh, checkpointed at frame `split`:
+    the state there, the uninterrupted run's artifacts, and a new meshed
+    evaluator resumed from the checkpoint."""
+    from evo_tpu_torch.io.davis import Davis240cDataset
+    from evo_tpu_torch.run import checkpoint
+    from evo_tpu_torch.run.evaluator import Evaluator
+
+    ds = Davis240cDataset(case["dataset"])
+    ev = Evaluator(ds, evaluator_params(case, pipelined=False, mesh=m), device=CPU)
+    ev.run(max_frames=case["split"])
+    state = checkpoint.state_dict(ev)
+    ev.run(max_frames=case["frames"], start_frame=case["split"])
+    out = finish_run(ev)
+    resumed = checkpoint.restore_into(
+        Evaluator(ds, evaluator_params(case, pipelined=False, mesh=m), device=CPU), state)
+    resumed.run(max_frames=case["frames"], start_frame=resumed.image_num)
+    out["resumed"] = finish_run(resumed)
+    out["state_table"] = {k[6:]: v for k, v in state.items() if k.startswith("table.")}
+    return out
+
+
+def _evaluator_default(m, case):
+    """The default (pipelined) drive on the mesh: compensation on the
+    evo-comp thread on its own process groups, the tracker's collectives on
+    the main thread."""
+    from evo_tpu_torch.io.davis import Davis240cDataset
+    from evo_tpu_torch.run.evaluator import Evaluator
+
+    ev = Evaluator(Davis240cDataset(case["dataset"]),
+                   evaluator_params(case, mesh=m, **case.get("extra", {})), device=CPU)
+    ev.run(max_frames=case["frames"])
+    return finish_run(ev)
+
+
 CASES = {
     # name: (mesh (n_space, n_batch), function)
     "sharded_splat": ((1, 4), _splat),
@@ -104,6 +194,11 @@ CASES = {
     "patch_solve": ((1, 4), _patch_solve),
     "windows_batched": ((1, 4), _windows_batched),
     "placements": ((2, 2), _placements),
+    "fused_window": ((2, 2), _fused_window),
+    "fused_window_host_policy": ((2, 2), lambda m, c: _fused_window(m, c, False)),
+    "evaluator_sync": ((2, 2), _evaluator_sync),
+    "evaluator_default": ((2, 2), _evaluator_default),
+    "evaluator_temporal_batch": ((1, 4), _evaluator_default),
 }
 
 
