@@ -5,8 +5,18 @@
 Phases (any failure raises and exits non-zero):
 1. environment: a CUDA card is required; prints the torch and CUDA versions
    and the card's name and power limit;
-2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc;
-3. kernels: the generic splat (forward and backward) and the fused
+2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc,
+   one nvcc for each source, all started together, and prints ptxas's
+   register, spill and shared-memory lines;
+3. kernels: the alignment step (`kernels/align_step.py`, one block per
+   table row: integration, the whole LM, the post-solve update and the
+   re-budget) against its plain version `align.solve_step_ref` on the
+   window scan's 128 ready rows: ran, lost and alive equal, the integrated
+   event images exact, costs within 1e-4 relative, centres and the warps'
+   rect pixels within 1e-3 px, the rotation within 1e-4, flow within 1e-4
+   rad, budgets within 1; timed as the splat is, its bound counted from the
+   run's LM trips (no PyTorch call computes it: library none). Then the
+   generic splat (forward and backward) and the fused
    warp-and-splat entries against their plain PyTorch versions on the card,
    at the shapes the main path gives them ([108, 256] and [108, 1024] events
    into 60x60 tiles, [1, 15000] into 180x240, [24, 1024] into 120x120 for
@@ -101,14 +111,13 @@ Phases (any failure raises and exits non-zero):
    gloo moves no point to point on CUDA tensors, and with one ``space``
    rank the tile solve exchanges no halo), the standard mode on the
    default drive over the first 12 frames: both ranks' trajectory.txt
-   byte-identical, each rank on the card with its splat launches counted,
-   its ATE under the limit, within twice that of phase 7's 12-frame
-   synchronous run and its keyframes within 1 of that run's; against that
-   run's tracks at least 90 % of the matched rows within 0.1 px and under
-   1 % of the rows unmatched, and the card moves a row's solve by at most
-   1e-4 px when the table is scanned as two blocks of 64 rows instead of
-   one of 128 (a rank's block rounds otherwise, so the two drift apart
-   and are not held to 1e-3 px); (c) `parity_worker` on the NCCL rank of (a), and
+   byte-identical, each rank on the card with its splat and alignment
+   launches counted, its ATE under the limit, within twice that of phase
+   7's 12-frame synchronous run and its keyframes within 1 of that run's;
+   a 128-row table scanned on the card as one block and as two blocks of
+   64 gives the same bits (`block_split_check`), and against that run's
+   tracks no row is unmatched and every matched row is within 1e-3 px;
+   (c) `parity_worker` on the NCCL rank of (a), and
    `measure_scaling_pipeline(counts=(1,))` in a rank of its own: the
    sharded window scan's and tile solve's cost on one card beside the
    unsharded calls; (d) `write_scaling_artifact` into a temporary path,
@@ -131,6 +140,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -144,6 +154,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 SOURCE = "evo_tpu_torch/csrc/splat.cu"
 REPLACES = "evo_tpu/kernels/splat_pallas.py:67"
+ALIGN_SOURCE = "evo_tpu_torch/csrc/align_step.cu"
+ALIGN_REPLACES = "evo_tpu/tracker/align.py:494"  # optimize_ready_patches, then :396
+# operations of the alignment kernel, counted from its code: a linearization
+# costs about 480 a rect pixel (two Catmull-Rom tap sets with derivatives, 32
+# gathered taps contracted three ways, cos and sin, the residual and its
+# Jacobian, 20 reduced products), the re-budget about 60
+ALIGN_FLOPS_PER_LIN_PIXEL = 480
+ALIGN_FLOPS_PER_BUDGET_PIXEL = 60
 WINDOW_EVENTS = 15_000  # EvaluatorParams.compensation_events
 BATCHES = (4, 8)
 TILES = 108  # 12 x 9 tiles of 20 px on DAVIS240C
@@ -345,6 +363,116 @@ def phase_kernels(splat, timer, dev, label: str) -> list[dict]:
     return rows
 
 
+def align_inputs(dev):
+    """The 128-row ready table and the 4-slot gradient store of the window
+    scan's checks (`block_split_check`, `multihost.parity_worker`)."""
+    from evo_tpu_torch.dist import multihost
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    t = multihost._ready_table(np.random.default_rng(1), 128, 180, 240)
+    *_, grads = multihost._scan_inputs(np.random.default_rng(2), 2, 2048, 180, 240)
+    return ps.table_from_numpy(t, dev), torch.as_tensor(grads).to(dev)
+
+
+def rect_displacement(wa, wb, center):
+    """[P] largest distance (float64) between where the warps wa and wb put
+    a row's 625 rect pixels."""
+    r = torch.arange(-12, 13, dtype=torch.float64, device=center.device)
+    gy, gx = torch.meshgrid(r, r, indexing="ij")
+    px = center[:, 0:1].double() + gx.reshape(1, -1)
+    py = center[:, 1:2].double() + gy.reshape(1, -1)
+
+    def apply(w):
+        w = w.double()
+        return (w[:, 0:1] * px - w[:, 1:2] * py + w[:, 2:3],
+                w[:, 1:2] * px + w[:, 0:1] * py + w[:, 3:4])
+
+    (ax, ay), (bx, by) = apply(wa), apply(wb)
+    return torch.sqrt((ax - bx) ** 2 + (ay - by) ** 2).amax(1)
+
+
+def align_errors(table, got: dict, ran, cost, lost, integrated, ref, ref_ran, ref_cost,
+                 ref_lost) -> dict:
+    """The kernel's step against the plain version's on one table, with the
+    bars each is held to."""
+    from evo_tpu_torch.tracker import align
+
+    r = ran
+    med = ref.final_costs.median(1).values
+    sure = (med - align.LOST_COST_THRESHOLD).abs() > 1e-5
+    dflow = torch.remainder(got["flow"].double() - ref.flow.double() + np.pi,
+                            2 * np.pi) - np.pi
+    out = dict(
+        rows_ran=int(r.sum()),
+        ran_equal=bool(torch.equal(ran, ref_ran)),
+        lost_equal=bool(torch.equal(lost[sure], ref_lost[sure])),
+        integrated_exact=bool(torch.equal(integrated[r], align.integrate_events(table)[r])),
+        cost_rel=((cost[r] - ref_cost[r]).abs() / ref_cost[r].abs()).max().item(),
+        center_px=(got["center"] - ref.center).abs().max().item(),
+        warp_rect_px=rect_displacement(got["warp"], ref.warp, table.center).max().item(),
+        warp_rotation=(got["warp"][:, :2] - ref.warp[:, :2]).abs().max().item(),
+        warp_entry_rel=((got["warp"] - ref.warp).abs()
+                        / ref.warp.abs().clamp_min(1e-3)).max().item(),
+        flow_rad=dflow.abs().max().item(),
+        num_of_events=(got["num_of_events"] - ref.num_of_events).abs().max().item(),
+        exact_fields=[k for k in ("counter", "n_costs", "cur_t", "last_update_t")
+                      if torch.equal(got[k], getattr(ref, k))],
+        alive_equal=bool(torch.equal(got["alive"][sure], ref.alive[sure])),
+    )
+    out["ok"] = bool(
+        out["ran_equal"] and out["lost_equal"] and out["integrated_exact"]
+        and out["alive_equal"] and len(out["exact_fields"]) == 4
+        and out["cost_rel"] <= 1e-4 and out["center_px"] <= 1e-3
+        and out["warp_rect_px"] <= 1e-3 and out["warp_rotation"] <= 1e-4
+        and out["flow_rad"] <= 1e-4 and out["num_of_events"] <= 1)
+    return out
+
+
+def phase_align_step(timer, dev, label: str, floor_ms: float) -> dict:
+    """The alignment step's kernel against its plain version on the card at
+    the window scan's 128 ready rows, timed; its bound counted from this
+    run's LM trips."""
+    from evo_tpu_torch.kernels import align_step as kalign
+    from evo_tpu_torch.tracker import align
+
+    table, g = align_inputs(dev)
+    got, ran, cost, lost, extra = kalign.align_step(table, g, g[0], integrated=True,
+                                                    trips=True)
+    ref, ref_ran, ref_cost, ref_lost = align.solve_step_ref(table, g, g[0])
+    torch.cuda.synchronize()
+    errors = align_errors(table, got, ran, cost, lost, extra["integrated"], ref, ref_ran,
+                          ref_cost, ref_lost)
+    print("align_step against its plain version: " + json.dumps(errors), flush=True)
+    if not errors["ok"]:
+        raise AssertionError(f"the alignment kernel disagrees with its plain version: {errors}")
+    trips = extra["trips"][ran]
+    ready = int(ran.sum())
+    pixels = 25 * 25
+    n_flops = (float((trips + 1).sum()) * pixels * ALIGN_FLOPS_PER_LIN_PIXEL
+               + ready * pixels * ALIGN_FLOPS_PER_BUDGET_PIXEL)
+    table_bytes = sum(getattr(table, k).nbytes for k, _ in kalign.IN_FIELDS) + sum(
+        v.nbytes for v in got.values()) + ran.nbytes + lost.nbytes + cost.nbytes
+    windows = min(ready * 2 * 2 * 64 * 64 * 4, g.nbytes + g[0].nbytes)
+    b_ms, by = bound(table_bytes + windows, n_flops)
+    row = dict(
+        kernel="align_step", shape=f"{table.capacity} ready rows, E {table.ev_t.shape[1]}, "
+                                   f"grads {list(g.shape)}",
+        max_abs_err=errors["center_px"], errors=errors,
+        trips=dict(mean=float(trips.float().mean()), max=int(trips.max()),
+                   linearizations=int((trips + 1).sum())),
+        ms=timer.device_ms(lambda: kalign.align_step(table, g, g[0]), REPS),
+        host_us=timer.host_us(lambda: kalign.align_step(table, g, g[0]), REPS),
+        plain_ms=timer.device_ms(lambda: align.solve_step_ref(table, g, g[0]), 20),
+        bound_ms=b_ms, bound_by=by, bound_bytes=table_bytes + windows, bound_flops=n_flops,
+        library_ms=None, floor_ms=floor_ms)
+    print(f"kernel align_step {row['shape']}: device {row['ms'] * 1e3:.2f} us/launch over "
+          f"{REPS}  wrapper host {row['host_us']:.2f} us  bound {b_ms * 1e3:.3f} us ({by}: "
+          f"{n_flops / 1e9:.4f} GFLOP, {(table_bytes + windows) / 1e6:.3f} MB)  plain "
+          f"{row['plain_ms'] * 1e3:.2f} us  library none  LM trips {row['trips']}  "
+          f"({label})", flush=True)
+    return row
+
+
 def phase_sweep(splat, timer, dev, label: str) -> None:
     """The forward tile kernel with private copies of the image in shared
     memory (as many as warps: plain adds; fewer: atomics) and the backward,
@@ -374,9 +502,20 @@ def phase_sweep(splat, timer, dev, label: str) -> None:
 
 
 def counts(splat) -> dict:
+    """Launches of every kernel since the last `reset_counts`."""
+    from evo_tpu_torch.kernels import align_step
+
     return {"splat_fwd": splat.launches_fwd, "splat_bwd": splat.launches_bwd,
             "warp_splat_fwd": splat.launches_warp_fwd,
-            "warp_splat_bwd": splat.launches_warp_bwd}
+            "warp_splat_bwd": splat.launches_warp_bwd,
+            "align_step": align_step.launches_align}
+
+
+def reset_counts(splat) -> None:
+    from evo_tpu_torch.kernels import align_step
+
+    splat.reset_counts()
+    align_step.reset_counts()
 
 
 def check_window(comp, args, dev, what: str) -> None:
@@ -414,7 +553,7 @@ def phase_main_path(splat, dev, label: str):
     with tempfile.TemporaryDirectory() as tmp:
         ev = Evaluator(dataset, EvaluatorParams(tracker_experiment=True, output_dir=tmp),
                        device=dev)
-        splat.reset_counts()
+        reset_counts(splat)
         t0 = time.perf_counter()
         ev.run()
         torch.cuda.synchronize()
@@ -460,7 +599,7 @@ def phase_main_path(splat, dev, label: str):
         raise AssertionError("motion field missing or not finite")
     # compensation goes through the fused entries, the count image through
     # the generic forward; the generic backward belongs to the next phase
-    for name in ("warp_splat_fwd", "warp_splat_bwd", "splat_fwd"):
+    for name in ("warp_splat_fwd", "warp_splat_bwd", "splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     if launches["splat_bwd"] != 0:
@@ -542,7 +681,7 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         params.output_dir = tmp
         ev = Evaluator(dataset, params)
-        splat.reset_counts()
+        reset_counts(splat)
         splat._launch = recording
         try:
             t0 = time.perf_counter()
@@ -596,7 +735,7 @@ def check_standard(run: dict, what: str) -> dict:
         raise AssertionError(f"{what}: {len(poses)} keyframes accepted: no ATE exists below 6")
     if vo.solve_devices != {"cuda"} or not vo.intr.is_cuda:
         raise AssertionError(f"{what}: VO geometry ran on {vo.solve_devices}, not on the card")
-    for name in ("warp_splat_fwd", "warp_splat_bwd", "splat_fwd"):
+    for name in ("warp_splat_fwd", "warp_splat_bwd", "splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"{what} never launched {name}")
     if not stats["ate_over_max_depth"] < ATE_OVER_MAX_DEPTH_LIMIT:
@@ -711,7 +850,7 @@ def phase_tracks_window(splat, trajectories, window, dev, label: str) -> None:
     t_mid = 0.5 * (float(t_us[0]) + float(t_us[-1]))
     n_samples = len(mf.velocities_from_trajectories(trajectories, int(t_mid))[0])
     mf.compensate_from_tracks(trajectories, x, y, t_us)  # the stencils' first launches
-    splat.reset_counts()
+    reset_counts(splat)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     field, img = mf.compensate_from_tracks(trajectories, x, y, t_us)
@@ -784,7 +923,7 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
             pipelined=False, output_dir=os.path.join(tmp, "resumed")))
         if resumed.image_num != 12 or resumed.device.type != "cuda":
             raise AssertionError(f"restored at frame {resumed.image_num} on {resumed.device}")
-        splat.reset_counts()
+        reset_counts(splat)
         resumed.run(start_frame=resumed.image_num)
         launches = counts(splat)
         paths = resumed.finish()
@@ -864,7 +1003,7 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
             return written
 
         checkpoint.save_checkpoint = keeping
-        splat.reset_counts()
+        reset_counts(splat)
         try:
             for win in FrameWindowIterator(dataset):
                 if win.frame_idx >= 12:
@@ -897,7 +1036,7 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
                                  "and 12, each with windows in flight")
         back = checkpoint.load_checkpoint(saved[0][0], dataset, EvaluatorParams(
             output_dir=os.path.join(tmp, "wd_resumed")))
-        splat.reset_counts()
+        reset_counts(splat)
         back.run(max_frames=12, start_frame=back.image_num)
         paths = back.finish()
         resumed_launches = counts(splat)
@@ -920,7 +1059,7 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
         # (c) the profiler around two frame windows of the default drive
         t0 = time.perf_counter()
         ev = Evaluator(dataset, EvaluatorParams(output_dir=os.path.join(tmp, "prof")))
-        splat.reset_counts()
+        reset_counts(splat)
         with metrics.profile_trace(os.path.join(tmp, "trace")):
             ev.run(max_frames=2)
         launches = counts(splat)
@@ -972,7 +1111,7 @@ def phase_large_tiles(splat, window, dev) -> dict:
     from evo_tpu_torch.tracker import compensate as comp
 
     params = comp.CompensateParams(tile=40, max_iters=8)
-    splat.reset_counts()
+    reset_counts(splat)
     check_window(comp, (*window, params), dev, "first window, 40 px tiles")
     launches = counts(splat)
     print("large tiles (40 px): " + json.dumps(launches), flush=True)
@@ -1061,7 +1200,7 @@ def phase_temporal_windows(splat, windows, dev, label: str) -> dict:
     temporal.compensate_windows_batched(windows[:2], device=dev)  # batched set-up
     out, results = {}, {}
     for w in (1,) + BATCHES:
-        splat.reset_counts()
+        reset_counts(splat)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if w == 1:
@@ -1224,7 +1363,7 @@ def phase_mesh(splat, dataset, dev, label: str) -> dict:
             ev = dataset.events.slice(0, WINDOW_EVENTS)
             x, y = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (ev.x, ev.y))
             w = torch.ones_like(x)
-            splat.reset_counts()
+            reset_counts(splat)
             got = tiling.sharded_splat(m, x, y, w, 180, 240, device=dev)
             launched = counts(splat)["splat_fwd"]
             want = splat.splat_image(x, y, w, 180, 240)
@@ -1281,7 +1420,7 @@ def mesh_rank(dataset, frames: int) -> dict:
     m = mesh.make_mesh(1, dist.get_world_size())
     with tempfile.TemporaryDirectory() as tmp:
         ev = Evaluator(dataset, EvaluatorParams(mesh=m, output_dir=tmp))
-        splat.reset_counts()
+        reset_counts(splat)
         t0 = time.perf_counter()
         ev.run(max_frames=frames)
         torch.cuda.synchronize()
@@ -1301,8 +1440,8 @@ def mesh_rank(dataset, frames: int) -> dict:
 
 def block_split_check(dev) -> dict:
     """The window scan of a 128-row ready table on the card against the same
-    rows scanned as two blocks of 64, as two ranks hold them: how far the
-    card's batched kernels move a row's result with the batch's shape."""
+    rows scanned as two blocks of 64, as two ranks hold them: whether a
+    row's result moves with the batch's shape (bit for bit, it must not)."""
     from evo_tpu_torch.dist import multihost
     from evo_tpu_torch.tracker import align
     from evo_tpu_torch.tracker import patch_state as ps
@@ -1385,10 +1524,8 @@ def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dic
         finally:
             dist.destroy_process_group()
 
-    # (b) two gloo ranks on the one card, a (1, 2) mesh. Each holds 64 rows,
-    # and the card's batched kernels round a row's solve by the batch's
-    # shape (block_split_check), which the tracker amplifies: the two ranks
-    # agree byte for byte, the unmeshed run to the bars below
+    # (b) two gloo ranks on the one card, a (1, 2) mesh. Each holds 64 rows;
+    # the two ranks agree byte for byte, the unmeshed run to the bars below
     t0 = time.perf_counter()
     ranks = multihost.launch(mesh_rank, 2, (dataset, 12), device=dev, backend="gloo",
                              timeout_s=300.0)
@@ -1399,7 +1536,8 @@ def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dic
                                  f"{r['backend']} with {r['table_rows']} rows")
         if r["trajectory"] != ranks[0]["trajectory"]:
             raise AssertionError(f"rank {r['rank']}'s trajectory.txt is not rank 0's")
-        if min(r["launches"][k] for k in ("splat_fwd", "warp_splat_fwd", "warp_splat_bwd")) <= 0:
+        if min(r["launches"][k] for k in ("splat_fwd", "warp_splat_fwd", "warp_splat_bwd",
+                                          "align_step")) <= 0:
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}")
         if not (r["ate_over_max_depth"] is not None
                 and r["ate_over_max_depth"] < ATE_OVER_MAX_DEPTH_LIMIT
@@ -1408,19 +1546,20 @@ def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dic
                                  f"{r['keyframes']} keyframes")
     tracks = compare_tracks(sync12["traj"], np.loadtxt(
         io.StringIO(ranks[0]["trajectory"].decode()), ndmin=2))
-    # the bars: most matched rows within 0.1 px, under 1 % of the rows
-    # unmatched, the ATE within twice the unmeshed run's, and the rounding
-    # that explains the drift no larger than 1e-4 px
-    if not (tracks["share_within_0_1"] >= 0.9
-            and tracks["unmatched"] < 0.01 * max(tracks["rows"])):
+    # the bars: a row's solve does not depend on the rows beside it (the
+    # alignment kernel, one block per row), so the ranks reproduce the
+    # unmeshed run's tracks: every row matched, every matched row within
+    # 1e-3 px (as the default drive reproduces the synchronous one), the ATE
+    # within twice the unmeshed run's
+    split = block_split_check(dev)
+    if not split["bitwise"]:
+        raise AssertionError(f"a 128-row scan against two 64-row blocks: {split}")
+    if not (tracks["unmatched"] == 0 and tracks["share_within_1e3"] == 1.0):
         raise AssertionError(f"two gloo ranks against the synchronous run: {tracks}")
     for r in ranks:
         if r["ate_over_max_depth"] > 2 * sync12_stats["ate_over_max_depth"]:
             raise AssertionError(f"rank {r['rank']}: ATE {r['ate_over_max_depth']} against "
                                  f"{sync12_stats['ate_over_max_depth']} unmeshed")
-    split = block_split_check(dev)
-    if split["center_max_diff_px"] > 1e-4:
-        raise AssertionError(f"a 128-row scan against two 64-row blocks: {split}")
     out["b"] = dict(seconds=time.perf_counter() - t0, against_synchronous_12=tracks,
                     block_split=split,
                     ranks=[{k: v for k, v in r.items() if k != "trajectory"} for r in ranks],
@@ -1472,7 +1611,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from evo_tpu_torch.kernels import nvcc, splat
+    from evo_tpu_torch.kernels import align_step, nvcc, splat
     from evo_tpu_torch.run.time_splat import Timer, card
 
     t_start = time.perf_counter()
@@ -1482,15 +1621,21 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     print(label, flush=True)
 
+    # one nvcc for each source, started together
     t0 = time.perf_counter()
-    splat._lib()
-    print(f"built the splat kernels in {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in nvcc.build_logs.get("evo_splat", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        for build in [pool.submit(lib) for lib in (splat._lib, align_step._lib)]:
+            build.result()
+    print(f"built the splat and alignment kernels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name in ("evo_splat", "evo_align_step"):
+        for line in nvcc.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas ({name}):", line.strip(), flush=True)
 
     timer = Timer(dev)
     rows = phase_kernels(splat, timer, dev, label)
+    align_row = phase_align_step(timer, dev, label, rows[0]["floor_ms"])
     phase_sweep(splat, timer, dev, label)
     phase_svd_methods(timer, dev, label)
     del timer
@@ -1548,6 +1693,19 @@ def main() -> int:
                                  bound_ms=r["bound_ms"], max_abs_err=r["max_abs_err"],
                                  launches=temporal[f"W={r['w']}"][name])
                 for r in batched_rows if r["kernel"] == name}
+    kernels.append(dict(
+        name="align_step", route="cuda", source=ALIGN_SOURCE, replaces=ALIGN_REPLACES,
+        # the tracker experiment's run, then every drive's
+        launches=stats["launches"]["align_step"],
+        launches_standard_mode=vo_stats["launches"]["align_step"],
+        launches_pipelined=pipe_stats["pipelined"]["launches"]["align_step"],
+        launches_temporal_batch=temporal_drive["launches"]["align_step"],
+        launches_mesh=meshed["a"]["launches"]["align_step"],
+        launches_mesh_gloo_ranks=[r["launches"]["align_step"] for r in meshed["b"]["ranks"]],
+        max_abs_err=align_row["max_abs_err"], shape=align_row["shape"],
+        ms=align_row["ms"], plain_ms=align_row["plain_ms"], bound_ms=align_row["bound_ms"],
+        bound_by=align_row["bound_by"], library_ms=None, floor_ms=align_row["floor_ms"],
+        host_us=align_row["host_us"], errors=align_row["errors"], trips=align_row["trips"]))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,8 @@ import os
 import shutil
 import threading
 
+import torch
+
 from evo_tpu_torch.core import build
 
 CSRC_DIR = os.path.join(build.PKG_DIR, "csrc")
@@ -21,6 +23,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # compiler output of each build made by this process (ptxas register and
 # shared-memory report), by library name
@@ -35,15 +38,18 @@ def _nvcc() -> str:
     return path
 
 
-def load(name: str, sources: list[str], signatures: dict) -> ctypes.CDLL:
+def load(name: str, sources: list[str], signatures: dict,
+         extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Return the loaded library built from `sources` (file names under
-    `csrc/`), compiling it first if needed. `signatures` maps each exported
-    function to (argtypes, restype)."""
-    with _lock:
+    `csrc/`) with `FLAGS` and `extra_flags`, compiling it first if needed.
+    `signatures` maps each exported function to (argtypes, restype)."""
+    with _lock:  # one build of each library; two libraries build side by side
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         paths = [os.path.join(CSRC_DIR, s) for s in sources]
-        so, log = build.shared_library(name, paths, [_nvcc(), *FLAGS])
+        so, log = build.shared_library(name, paths, [_nvcc(), *FLAGS, *extra_flags])
         if log is not None:
             build_logs[name] = log
         lib = ctypes.CDLL(so)
@@ -52,3 +58,18 @@ def load(name: str, sources: list[str], signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
         return lib
+
+
+def launch(fn, on, *args) -> None:
+    """Call the C entry `fn` of a loaded library with `args` and PyTorch's
+    current stream, on the card that holds the tensor `on`; raise if it
+    returns a CUDA error (a launch that was refused never runs)."""
+    dev = on.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: launch failed with CUDA error {err}")

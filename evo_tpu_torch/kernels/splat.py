@@ -233,16 +233,9 @@ def _lib():
 def _launch(name: str, on, *args) -> None:
     """Call the C entry `name` with `args` and PyTorch's current stream, on
     the card that holds the tensor `on`; raise if the launch was refused."""
-    fn = getattr(_lib(), name)
-    dev = on.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+    from evo_tpu_torch.kernels import nvcc
+
+    nvcc.launch(getattr(_lib(), name), on, *args)
 
 
 def _bn(x):

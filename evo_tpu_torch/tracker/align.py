@@ -15,6 +15,11 @@ an SE(2) warp plus a flow angle, one batched LM for all ready patches:
 
 The JAX package selects the ready rows by a two-tier stable-sort compaction
 so that its shapes stay static; here they are selected by index.
+
+`solve_step` is one sub-batch's step of the window scan (solve the ready
+patches, re-budget them): on the card one launch of the hand-written kernel
+`kernels.align_step`, one block per row, whose result for a row does not
+depend on the other rows; on the CPU its plain version `solve_step_ref`.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import math
 import torch
 
 from evo_tpu_torch.core import lie
-from evo_tpu_torch.kernels import interp
+from evo_tpu_torch.kernels import align_step, interp
 from evo_tpu_torch.solve.lm import lm_solve
 from evo_tpu_torch.tracker import patch_state as ps
 
@@ -358,20 +363,41 @@ def cost_map(table: ps.PatchTable, grads, patch_idx: int, half_width: int = 5):
     return (0.5 * rho).reshape(ox.shape)
 
 
+def solve_step_ref(table: ps.PatchTable, grads, latest_grad):
+    """Plain version of `solve_step`: `optimize_ready_patches`, then
+    `update_budgets_solved` of the rows that solved."""
+    table, info = optimize_ready_patches(table, grads)
+    table = update_budgets_solved(table, latest_grad, info["ran"])
+    return table, info["ran"], info["cost"], info["lost"]
+
+
+def solve_step(table: ps.PatchTable, grads, latest_grad):
+    """Solve every ready patch against the gradient store grads [S, 2, H, W],
+    apply the post-solve updates and re-budget the patches that solved
+    against latest_grad [2, H, W], the newest detection frame's gradients.
+    Returns (table, ran, cost, lost), the last three [P] as
+    `optimize_ready_patches` logs them. A table on the card takes the kernel
+    (`kernels.align_step`, one launch), a table on the CPU the plain version."""
+    if table.center.device.type == "cpu":
+        return solve_step_ref(table, grads, latest_grad)
+    fields, ran, cost, lost, _ = align_step.align_step(table, grads, latest_grad)
+    return table.replace(**fields), ran, cost, lost
+
+
 SCAN_LOG_FIELDS = ("ran", "cost", "lost", "center", "cur_t", "alive", "track_id")
 
 
 def process_window_scan(table: ps.PatchTable, grads, ex, ey, et, ep, mask,
                         latest_grad):
-    """A frame window's K event sub-batches, in order: route events, solve
-    the ready patches, re-budget the patches that solved. ex, ey, et, ep,
-    mask: [K, C]. Returns (table, stacked log dict of [K, P, ...] tensors)."""
+    """A frame window's K event sub-batches, in order: route events, then
+    `solve_step` (solve the ready patches, re-budget the patches that
+    solved). ex, ey, et, ep, mask: [K, C]. Returns (table, stacked log dict
+    of [K, P, ...] tensors)."""
     logs = {k: [] for k in SCAN_LOG_FIELDS}
     for k in range(ex.shape[0]):
         table = ps.route_events(table, ex[k], ey[k], et[k], ep[k], mask[k])
-        table, info = optimize_ready_patches(table, grads)
-        table = update_budgets_solved(table, latest_grad, info["ran"])
-        step = dict(ran=info["ran"], cost=info["cost"], lost=info["lost"],
+        table, ran, cost, lost = solve_step(table, grads, latest_grad)
+        step = dict(ran=ran, cost=cost, lost=lost,
                     center=table.center, cur_t=table.cur_t,
                     alive=table.alive, track_id=table.track_id)
         for name in SCAN_LOG_FIELDS:

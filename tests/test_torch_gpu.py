@@ -530,3 +530,129 @@ def test_parity_worker_in_two_gloo_ranks_on_card(cuda_device):
         assert r["num_processes"] == 2 and r["backend"] == "gloo"
         assert r["device"].startswith("cuda")
         assert r["decode_max_abs_err"] < 2e-4 and r["scan_max_abs_err"] < 2e-3 and r["ok"], r
+
+
+# ---- the alignment step (`kernels/align_step.py`, `csrc/align_step.cu`) ----
+# Tolerances: those of tests/test_torch_align_step.py (the kernel sums the
+# 625 rect pixels in another order than the plain version's batched
+# reductions, and the LM carries that noise along flat directions of the
+# cost; `torch_align_tables.WEAK_ROWS` names the one edge row that float32
+# leaves loose), and the integrated event image exact (a sum of +-1).
+
+
+def _ready_rows(dev):
+    """The 128-row ready table and gradient store `block_split_check` and
+    `parity_worker` use."""
+    from evo_tpu_torch.dist import multihost
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    t = multihost._ready_table(np.random.default_rng(1), 128, 180, 240)
+    *events, grads = multihost._scan_inputs(np.random.default_rng(2), 2, 2048, 180, 240)
+    return (ps.table_from_numpy(t, dev), torch.as_tensor(grads).to(dev),
+            [torch.as_tensor(a).to(dev) for a in events])
+
+
+def _kernel_against_plain(table, grads, rows):
+    """One launch against `solve_step_ref` on the same table; returns the
+    kernel's integrated images, trips and ran."""
+    from evo_tpu_torch.kernels import align_step as kalign
+    from evo_tpu_torch.tracker import align
+    from evo_tpu_torch.tracker import patch_state as ps
+    import torch_align_tables as tables
+
+    n = kalign.launches_align
+    fields, ran, cost, lost, extra = kalign.align_step(table, grads, grads[0],
+                                                       integrated=True, trips=True)
+    torch.cuda.synchronize()
+    assert kalign.launches_align == n + 1
+    assert all(v.is_cuda for v in fields.values())
+    ref_table, ref_ran, ref_cost, ref_lost = align.solve_step_ref(table, grads, grads[0])
+    assert torch.equal(ran, ref_ran)
+    ran_np = ran.cpu().numpy()
+    tables.assert_same_step(ps.table_to_numpy(table.replace(**fields)),
+                            ps.table_to_numpy(ref_table), ran_np, cost.cpu().numpy(),
+                            ref_cost.cpu().numpy(), table.center.cpu().numpy(), rows)
+    sure = ((ref_table.final_costs.median(1).values - 0.6).abs() > 1e-5)
+    assert torch.equal(lost[sure], ref_lost[sure])
+    img = align.integrate_events(table)
+    assert torch.equal(extra["integrated"][ran], img[ran])
+    assert (extra["trips"][ran] >= 1).all() and (extra["trips"][~ran] == 0).all()
+    return extra, ran
+
+
+@pytest.mark.gpu
+def test_align_step_kernel_matches_plain_version(cuda_device):
+    """The kernel against `solve_step_ref` on the card at P = 128 ready rows
+    (the window scan's table): ran equal, lost equal, the integrated images
+    exact, costs within 1e-4 relative, centres and the warps' rect pixels
+    within 1e-3 px, flow within 1e-4 rad, budgets within 1."""
+    table, grads, _ = _ready_rows(cuda_device)
+    rows = {f"row_{i}": i for i in range(128)}
+    extra, ran = _kernel_against_plain(table, grads, rows)
+    assert ran.all()
+
+
+@pytest.mark.gpu
+def test_align_step_edge_rows_on_card(cuda_device):
+    """The kernel against `solve_step_ref` on `torch_align_tables.edge_table`:
+    no integration set, events outside the rect, a window clamped at the
+    border, a rect out of the image, a border-lost row, a warp off the image,
+    a degenerate (singular, damped) system, a lost row, rows not ready, dead
+    or uninitialised; and a NaN flow, whose every step is bad: the kernel
+    neither raises nor faults, and gives NaN where the plain version does."""
+    from evo_tpu_torch.kernels import align_step as kalign
+    from evo_tpu_torch.tracker import align
+    from evo_tpu_torch.tracker import patch_state as ps
+    import torch_align_tables as tables
+
+    rng = np.random.default_rng(5)
+    grads = torch.as_tensor(tables.smooth_grads(rng)).to(cuda_device)
+    fields, rows = tables.edge_table(rng, grads.cpu().numpy(), nan_row=True)
+    nan_row = rows.pop("nan_flow")
+    finite = {k: v[:nan_row] for k, v in fields.items()}
+    _kernel_against_plain(ps.table_from_numpy(finite, cuda_device), grads, rows)
+
+    table = ps.table_from_numpy(fields, cuda_device)
+    got, ran, cost, lost, _ = kalign.align_step(table, grads, grads[0])
+    want, ref_ran, ref_cost, ref_lost = align.solve_step_ref(table, grads, grads[0])
+    torch.cuda.synchronize()
+    assert ran[nan_row] and ref_ran[nan_row] and not lost[nan_row] and not ref_lost[nan_row]
+    assert torch.isnan(cost[nan_row]) and torch.isnan(ref_cost[nan_row])
+    for name, v in got.items():
+        a, b = v[nan_row].cpu(), getattr(want, name)[nan_row].cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b)) if a.is_floating_point() \
+            else torch.equal(a, b), name
+    # the rows before it are those of the first launch
+    for name, v in got.items():
+        a, b = v[:nan_row].cpu(), getattr(want, name)[:nan_row].cpu()
+        assert a.shape == b.shape and bool(torch.isfinite(a.float()).all()), name
+
+
+@pytest.mark.gpu
+def test_window_scan_on_card_does_not_depend_on_the_block(cuda_device, monkeypatch):
+    """`process_window_scan` of 128 ready rows on the card against the same
+    rows as two blocks of 64, as two ranks hold them: bit for bit, every
+    field and every log. The scan launches the kernel once a sub-batch and
+    never reaches the plain version."""
+    from evo_tpu_torch.kernels import align_step as kalign
+    from evo_tpu_torch.tracker import align
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's scan took the plain version")
+
+    monkeypatch.setattr(align, "solve_step_ref", refuse)
+    monkeypatch.setattr(align, "optimize_ready_patches", refuse)
+    table, grads, events = _ready_rows(cuda_device)
+    n = kalign.launches_align
+    full, log = align.process_window_scan(table, grads, *events, grads[0])
+    assert kalign.launches_align == n + events[0].shape[0]
+    halves = [align.process_window_scan(
+        ps.PatchTable(**{k: getattr(table, k)[s].contiguous() for k in ps.FIELDS}),
+        grads, *events, grads[0]) for s in (slice(0, 64), slice(64, 128))]
+    assert log["ran"][0].all()
+    for name in ps.FIELDS:
+        assert torch.equal(torch.cat([getattr(h[0], name) for h in halves]),
+                           getattr(full, name)), name
+    for name, v in log.items():
+        assert torch.equal(torch.cat([h[1][name] for h in halves], 1), v), name
