@@ -6,8 +6,9 @@ Phases (any failure raises and exits non-zero):
 1. environment: a CUDA card is required; prints the torch and CUDA versions
    and the card's name and power limit;
 2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc,
-   one nvcc for each source, all started together, and prints ptxas's
-   register, spill and shared-memory lines;
+   one nvcc for each source (and one for the alignment kernel's clock
+   build), all started together, and prints ptxas's register, spill and
+   shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
    re-budget) against its plain version `align.solve_step_ref` on the
@@ -15,7 +16,11 @@ Phases (any failure raises and exits non-zero):
    event images exact, costs within 1e-4 relative, centres and the warps'
    rect pixels within 1e-3 px, the rotation within 1e-4, flow within 1e-4
    rad, budgets within 1; timed as the splat is, its bound counted from the
-   run's LM trips (no PyTorch call computes it: library none). Then the
+   run's LM trips (no PyTorch call computes it: library none). Its clock
+   build (-DEVO_ALIGN_CLOCKS) must give the same bits, with each ready
+   row's stage cycles adding up to its total; then `run/time_align.py`'s
+   sweep over 1, 16 and 128 ready rows prints device and host µs and the
+   clock's split by stage (`kernels.align_step.STAGES`). Then the
    generic splat (forward and backward) and the fused
    warp-and-splat entries against their plain PyTorch versions on the card,
    at the shapes the main path gives them ([108, 256] and [108, 1024] events
@@ -363,17 +368,6 @@ def phase_kernels(splat, timer, dev, label: str) -> list[dict]:
     return rows
 
 
-def align_inputs(dev):
-    """The 128-row ready table and the 4-slot gradient store of the window
-    scan's checks (`block_split_check`, `multihost.parity_worker`)."""
-    from evo_tpu_torch.dist import multihost
-    from evo_tpu_torch.tracker import patch_state as ps
-
-    t = multihost._ready_table(np.random.default_rng(1), 128, 180, 240)
-    *_, grads = multihost._scan_inputs(np.random.default_rng(2), 2, 2048, 180, 240)
-    return ps.table_from_numpy(t, dev), torch.as_tensor(grads).to(dev)
-
-
 def rect_displacement(wa, wb, center):
     """[P] largest distance (float64) between where the warps wa and wb put
     a row's 625 rect pixels."""
@@ -433,6 +427,7 @@ def phase_align_step(timer, dev, label: str, floor_ms: float) -> dict:
     the window scan's 128 ready rows, timed; its bound counted from this
     run's LM trips."""
     from evo_tpu_torch.kernels import align_step as kalign
+    from evo_tpu_torch.run.time_align import align_inputs
     from evo_tpu_torch.tracker import align
 
     table, g = align_inputs(dev)
@@ -470,7 +465,51 @@ def phase_align_step(timer, dev, label: str, floor_ms: float) -> dict:
           f"{n_flops / 1e9:.4f} GFLOP, {(table_bytes + windows) / 1e6:.3f} MB)  plain "
           f"{row['plain_ms'] * 1e3:.2f} us  library none  LM trips {row['trips']}  "
           f"({label})", flush=True)
+    row.update(phase_align_clock(kalign, timer, dev, label, table, g, got, ran, cost, lost,
+                                 extra))
     return row
+
+
+def phase_align_clock(kalign, timer, dev, label: str, table, g, got, ran, cost, lost,
+                      extra) -> dict:
+    """The alignment kernel's clock build against the plain build on the
+    same table (the same bits; each ready row's stage cycles add up to its
+    total), then `time_align`'s sweep over ready rows with the split."""
+    from evo_tpu_torch.run.time_align import sm_clock_mhz, split_text, sweep
+
+    got_c, ran_c, cost_c, lost_c, extra_c = kalign.align_step(
+        table, g, g[0], integrated=True, trips=True, clocks=True)
+    torch.cuda.synchronize()
+    mine = {**got, "ran": ran, "cost": cost, "lost": lost, **extra}
+    theirs = {**got_c, "ran": ran_c, "cost": cost_c, "lost": lost_c, **extra_c}
+    differ = [k for k, v in mine.items()
+              if not torch.equal(torch.nan_to_num(v), torch.nan_to_num(theirs[k]))
+              or not torch.equal(torch.isnan(v), torch.isnan(theirs[k]))]
+    clocks = extra_c["clocks"]
+    stages = clocks[ran][:, :-1].sum(1)
+    if differ or not torch.equal(stages, clocks[ran][:, -1]) or (clocks[ran] < 0).any() \
+            or (clocks[~ran] != 0).any():
+        raise AssertionError(f"the alignment kernel's clock build is off: fields {differ}, "
+                             f"stage sums {stages.tolist()[:4]} against totals "
+                             f"{clocks[ran][:4, -1].tolist()}")
+    rows = sweep(kalign, timer, dev, REPS)
+    cur, top = sm_clock_mhz()
+    for n, r in rows.items():
+        print(f"align_step at {n} ready rows: device {r['device_us']:.2f} us/launch over "
+              f"{REPS} (clock build {r['clock_build_device_us']:.2f})  wrapper host "
+              f"{r['host_us']:.2f} us  LM trips at most {r['max_trips']} ({label})",
+              flush=True)
+    for n, r in rows.items():
+        c = r["clock"]
+        print(f"align_step clock split at {n} ready rows (cycles at {cur:.0f} of {top:.0f} "
+              f"MHz; mean over rows | longest row, {c['longest_row_trips']} trips): "
+              f"{split_text(c)}", flush=True)
+    return dict(sweep={str(n): dict(device_us=r["device_us"], host_us=r["host_us"],
+                                    clock_build_device_us=r["clock_build_device_us"],
+                                    mean_cycles=dict(zip(r["clock"]["stages"],
+                                                         r["clock"]["mean_cycles"])))
+                       for n, r in rows.items()},
+                sm_clock_mhz=cur)
 
 
 def phase_sweep(splat, timer, dev, label: str) -> None:
@@ -1623,12 +1662,13 @@ def main() -> int:
 
     # one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for build in [pool.submit(lib) for lib in (splat._lib, align_step._lib)]:
+    with ThreadPoolExecutor(3) as pool:
+        for build in [pool.submit(lib) for lib in (splat._lib, align_step._lib,
+                                                   partial(align_step._lib, clocks=True))]:
             build.result()
-    print(f"built the splat and alignment kernels in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for name in ("evo_splat", "evo_align_step"):
+    print(f"built the splat and alignment kernels (and the latter's clock build) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name in ("evo_splat", "evo_align_step", "evo_align_step_clock"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -1705,7 +1745,8 @@ def main() -> int:
         max_abs_err=align_row["max_abs_err"], shape=align_row["shape"],
         ms=align_row["ms"], plain_ms=align_row["plain_ms"], bound_ms=align_row["bound_ms"],
         bound_by=align_row["bound_by"], library_ms=None, floor_ms=align_row["floor_ms"],
-        host_us=align_row["host_us"], errors=align_row["errors"], trips=align_row["trips"]))
+        host_us=align_row["host_us"], errors=align_row["errors"], trips=align_row["trips"],
+        sweep=align_row["sweep"]))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

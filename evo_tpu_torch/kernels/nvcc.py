@@ -63,10 +63,12 @@ def load(name: str, sources: list[str], signatures: dict,
 def launch(fn, on, *args) -> None:
     """Call the C entry `fn` of a loaded library with `args` and PyTorch's
     current stream, on the card that holds the tensor `on`; raise if it
-    returns a CUDA error (a launch that was refused never runs)."""
+    returns a CUDA error (a launch that was refused never runs). The stream
+    is read as a raw handle: one host call, where `torch.cuda.current_stream`
+    builds a `Stream` object first."""
     dev = on.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index is None or dev.index == torch.cuda.current_device():
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
         err = fn(*args, stream)
     else:
         with torch.cuda.device(dev):

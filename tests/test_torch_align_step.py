@@ -23,6 +23,7 @@ that noise along flat directions of the cost):
 - time_without_update (1 / the centre's move) within 1e-3 relative.
 """
 
+import ctypes
 import dataclasses
 import os
 import re
@@ -133,7 +134,7 @@ def test_kernel_entry_refuses_cpu_tensors():
     kalign.reset_counts()
     with pytest.raises(RuntimeError, match="no kernel for device cpu.*solve_step_ref"):
         kalign.align_step(t, g, g[0])
-    assert kalign.launches_align == 0 and kalign._lib_handle is None
+    assert kalign.launches_align == 0 and not kalign._libs
 
 
 def _c_declaration():
@@ -146,23 +147,84 @@ def _c_declaration():
 def test_signature_table_matches_the_c_declaration():
     """(d) The ctypes argument types of `evo_align_step` are those of its
     `extern "C"` declaration in csrc/align_step.cu, argument by argument:
-    a pointer for each pointer (and the stream), an int for each int."""
+    the address of the pointer array, then an int for each int and a
+    pointer for the stream. The array is the kernel's `Args` pointers: the
+    wrapper's `POINTERS` name them in the struct's order (the table's fields
+    in `IN_FIELDS` order, the gradients, the outputs as `<field>_out`), and
+    the source counts as many (`kPointers`)."""
     src = _c_declaration()
     m = re.search(r'extern "C" int (\w+)\((.*?)\)\s*\{', src, re.S)
     assert m is not None
     name, params = m.group(1), [p.strip() for p in m.group(2).split(",")]
     argtypes, restype = kalign._SIGNATURES[name]
     assert restype is kalign._I and len(argtypes) == len(params), (len(argtypes), len(params))
-    for ctype, decl in zip(argtypes, params):
+    assert params[0].startswith("const void* const*") and argtypes[0] is kalign._P
+    for ctype, decl in zip(argtypes[1:], params[1:]):
         want = kalign._P if "*" in decl else kalign._I
-        assert decl.split()[0].rstrip("*") in ("int", "float", "void", "const", "unsigned"), decl
+        assert decl.split()[0].rstrip("*") in ("int", "void"), decl
         assert ctype is want, decl
-    # the wrapper passes the table's fields in the declaration's order
-    named = [re.sub(r"\W", "", d.split()[-1]) for d in params]
+    # the pointer members of `struct Args`, in order
+    body = re.search(r"struct Args \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    pointers, ints = [], []
+    for stmt in filter(None, (t.strip() for t in body.split(";"))):
+        for k, piece in enumerate(stmt.split(",")):
+            ident = re.findall(r"\w+", piece)[-1]
+            (pointers if "*" in piece else ints).append(ident)
+    assert pointers == kalign.POINTERS
+    assert ints == ["P", "E", "S", "H", "W"]
+    n = re.search(r"constexpr int kPointers = (\d+);", src)
+    assert n is not None and int(n.group(1)) == len(kalign.POINTERS)
     fields_in = [n for n, _ in kalign.IN_FIELDS]
-    assert named[:len(fields_in)] == fields_in
-    outs = named[len(fields_in) + 2:len(fields_in) + 2 + len(kalign.OUT_FIELDS)]
+    assert pointers[:len(fields_in)] == fields_in
+    outs = pointers[len(fields_in) + 2:len(fields_in) + 2 + len(kalign.OUT_FIELDS)]
     assert outs == [f + "_out" for f in kalign.OUT_FIELDS]
+
+
+@pytest.mark.parametrize("extras", [(), ("integrated", "trips"),
+                                    ("integrated", "trips", "clocks")])
+def test_wrapper_outputs_are_one_arena_in_pointer_order(extras):
+    """(e) A call's outputs (`kernels.align_step._run`, with a launch that
+    only records what it is given, on CPU tensors): every output a
+    contiguous tensor of its field's dtype and shape, views of one arena
+    that do not overlap; the pointer array the table's inputs in
+    `IN_FIELDS` order, the gradients, then each output's own address in
+    `POINTERS` order (0 where it is not made); the int64 clocks 8-byte
+    aligned; P, E, S, H, W as the table and the gradients give them."""
+    t = multihost._ready_table(np.random.default_rng(1), 12, 180, 240)
+    table = tps.table_from_numpy(t, device="cpu")
+    g = torch.zeros(3, 2, 180, 240)
+    seen = {}
+
+    def launch(fn, address, *args):
+        seen["ptrs"] = list((ctypes.c_uint64 * len(kalign.POINTERS)).from_address(address))
+        seen["args"] = args
+
+    ins = [getattr(table, n) for n in kalign._IN_NAMES]
+    outs = kalign._run(None, table, ins, g, g[0], extras, launch)
+    assert seen["args"] == (12, table.ev_t.shape[1], 3, 180, 240)
+    n_in = len(kalign.IN_FIELDS)
+    assert seen["ptrs"][:n_in] == [x.data_ptr() for x in ins]
+    assert seen["ptrs"][n_in:n_in + 2] == [g.data_ptr(), g[0].data_ptr()]
+    want = {n: (getattr(table, n).dtype, getattr(table, n).shape) for n in kalign.OUT_FIELDS}
+    want.update(ran=(torch.bool, (12,)), lost=(torch.bool, (12,)), cost=(torch.float32, (12,)),
+                integrated=(torch.float32, (12, 25, 25)), trips=(torch.int32, (12,)),
+                clocks=(torch.int64, (12, len(kalign.STAGES))))
+    spans = []
+    for name, ptr in zip(kalign.POINTERS[n_in + 2:], seen["ptrs"][n_in + 2:]):
+        field = name[:-len("_out")]
+        if field in kalign.EXTRA_OUTPUTS and field not in extras:
+            assert ptr == 0 and field not in outs, field
+            continue
+        out = outs[field]
+        assert (out.dtype, out.shape) == want[field], field
+        assert out.is_contiguous() and out.data_ptr() == ptr, field
+        spans.append((ptr, ptr + out.numel() * out.element_size()))
+    assert set(outs) == set(kalign.OUT_FIELDS + kalign.LOG_OUTPUTS) | set(extras)
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    if "clocks" in extras:
+        assert outs["clocks"].data_ptr() % 8 == 0
 
 
 @pytest.mark.parametrize("cname, value", [

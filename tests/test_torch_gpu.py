@@ -629,6 +629,29 @@ def test_align_step_edge_rows_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+def test_align_step_clock_build_on_card(cuda_device):
+    """The kernel's clock build (-DEVO_ALIGN_CLOCKS) at P = 128 ready rows:
+    the bits of the plain build in every output, each row's stage cycles
+    adding up to its total, and the count of launches of both."""
+    from evo_tpu_torch.kernels import align_step as kalign
+
+    table, grads, _ = _ready_rows(cuda_device)
+    n = kalign.launches_align
+    outs = []
+    for clocks in (False, True):
+        fields, ran, cost, lost, extra = kalign.align_step(
+            table, grads, grads[0], integrated=True, trips=True, clocks=clocks)
+        outs.append({**fields, "ran": ran, "cost": cost, "lost": lost, **extra})
+    torch.cuda.synchronize()
+    assert kalign.launches_align == n + 2
+    for name, v in outs[0].items():
+        assert torch.equal(torch.nan_to_num(v), torch.nan_to_num(outs[1][name])), name
+    clocks = outs[1]["clocks"].cpu()
+    assert clocks.shape == (128, len(kalign.STAGES))
+    assert torch.equal(clocks[:, :-1].sum(1), clocks[:, -1]) and (clocks[:, -1] > 0).all()
+
+
+@pytest.mark.gpu
 def test_window_scan_on_card_does_not_depend_on_the_block(cuda_device, monkeypatch):
     """`process_window_scan` of 128 ready rows on the card against the same
     rows as two blocks of 64, as two ranks hold them: bit for bit, every
