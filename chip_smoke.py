@@ -52,7 +52,11 @@ Phases (any failure raises and exits non-zero):
    scene's depth under its limit. The first 12 frames are run once more with
    the VO geometry on the host CPU, and the `vo` stage seconds of both are
    printed side by side. Before it, the batched SVDs of the two RANSACs are
-   timed with each cuSOLVER method;
+   timed with each cuSOLVER method. Then VO's repeatability: the 12-frame
+   synchronous run once more, which must give the same tracks and every
+   keyframe pose and the ATE bit for bit (a `vo repeats itself` line with
+   the largest pose difference, 0, and both runs' `vo` seconds): VO's sums
+   run in one order on the card (ROADMAP §C item 5);
 8. pipelined path: the same scene in the same call through the default
    drive (`pipelined=True`, `async_vo=True`: compensation on the evo-comp
    thread and VO on the evo-vo thread, each on its own stream) over all 24
@@ -824,6 +828,27 @@ def phase_standard_mode(splat, dataset, dev, label: str):
     print(f"vo geometry, card against host, first {half} frames, synchronous drive "
           f"({label}): " + json.dumps(dict(card=side(card), host_cpu=side(host))), flush=True)
     return stats, sync, card
+
+
+def phase_vo_repeats(splat, dataset, label: str, sync12: dict) -> dict:
+    """The 12-frame synchronous standard mode once more, held to phase 7's
+    12-frame run bit for bit: tracks, every keyframe pose and the ATE."""
+    from evo_tpu_torch.run.evaluator import EvaluatorParams
+
+    again = run_standard(splat, dataset, EvaluatorParams(pipelined=False), max_frames=12)
+    check_standard(again, "the 12-frame synchronous run, again")
+    if not np.array_equal(sync12["traj"], again["traj"]):
+        raise AssertionError("the 12-frame synchronous run gave other tracks the second time")
+    a, b = (np.stack(r["ev"].vo.poses()) for r in (sync12, again))
+    ates = [r["ev"].vo.last_ate.rmse for r in (sync12, again)]
+    out = dict(keyframes=[len(a), len(b)], ate_rmse_m=ates,
+               max_pose_diff=float(np.abs(a - b).max()) if a.shape == b.shape else None,
+               vo_s=[r["ev"].counters.times["vo"] for r in (sync12, again)])
+    print(f"vo repeats itself, 12 frames, synchronous drive ({label}): " + json.dumps(out),
+          flush=True)
+    if a.shape != b.shape or not np.array_equal(a, b) or ates[0] != ates[1]:
+        raise AssertionError(f"VO gave other poses on the same input: {out}")
+    return out
 
 
 def phase_pipelined(splat, dataset, dev, label: str, sync_stats: dict, sync: dict,
@@ -1683,6 +1708,7 @@ def main() -> int:
     large = phase_large_tiles(splat, window, dev)
     phase_tracks_window(splat, trajectories, window, dev, label)
     vo_stats, sync, sync12 = phase_standard_mode(splat, dataset, dev, label)
+    phase_vo_repeats(splat, dataset, label, sync12)
     pipe_stats, default_run = phase_pipelined(splat, dataset, dev, label, vo_stats, sync,
                                               sync12)
     t0 = time.perf_counter()

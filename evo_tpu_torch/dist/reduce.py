@@ -1,11 +1,11 @@
 """The BA normal equations reduced over the ``batch`` axis — counterpart of
 `evo_tpu/dist/reduce.py`.
 
-The observations are split over ``batch``; each rank linearizes its block
-(the analytic Jacobians of `vo.ba._obs_linearize`, Huber weights) and
-assembles its partial blocks Hpp, Hll, A, bp and bl; one `all_reduce` over
-``batch`` sums them, ahead of the small Schur solve every rank can then do
-alone.
+The observations are split over ``batch``; each rank assembles the partial
+blocks Hpp, Hll, A, bp and bl of its block as the BA does
+(`vo.ba.normal_equations`, summed in one order on every run); one
+`all_reduce` over ``batch`` sums them, ahead of the small Schur solve every
+rank can then do alone.
 """
 
 from __future__ import annotations
@@ -15,8 +15,7 @@ import torch.distributed as dist
 
 from evo_tpu_torch.core.device import resolve
 from evo_tpu_torch.dist.mesh import BATCH_AXIS, block
-from evo_tpu_torch.solve.lm import huber_weights
-from evo_tpu_torch.vo.ba import _obs_linearize
+from evo_tpu_torch.vo.ba import normal_equations, observation_sums
 
 
 def sharded_normal_equations(mesh, poses, landmarks, intr, obs_frame, obs_lm,
@@ -43,21 +42,8 @@ def sharded_normal_equations(mesh, poses, landmarks, intr, obs_frame, obs_lm,
     op, om = f32(obs_p2d[rows]), f32(obs_mask[rows])
     F, L = poses.shape[0], landmarks.shape[0]
 
-    r, Jp, Jl = _obs_linearize(poses[of], landmarks[ol], intr, op)
-    w = huber_weights((r * r).sum(-1), huber) * om
-    Jp = torch.where(fixed[of][:, None, None], torch.zeros_like(Jp), Jp)
-    wr = r * w[:, None]
-    Jpw = Jp * w[:, None, None]
-    parts = (
-        torch.zeros((F, 6, 6), device=dev).index_add_(
-            0, of, torch.einsum("oij,oik->ojk", Jpw, Jp)),
-        torch.zeros((L, 3, 3), device=dev).index_add_(
-            0, ol, torch.einsum("oij,oik->ojk", Jl * w[:, None, None], Jl)),
-        torch.zeros((L * F, 6, 3), device=dev).index_add_(
-            0, ol * F + of, torch.einsum("oij,oik->ojk", Jpw, Jl)).reshape(L, F, 6, 3),
-        torch.zeros((F, 6), device=dev).index_add_(0, of, torch.einsum("oij,oi->oj", Jp, wr)),
-        torch.zeros((L, 3), device=dev).index_add_(0, ol, torch.einsum("oij,oi->oj", Jl, wr)),
-    )
+    parts = normal_equations(poses, landmarks, intr, of, ol, op, om, fixed,
+                             observation_sums(of, ol, F, L, obs_mask=om > 0), huber)
     # one reduction over the observation shards for all five blocks
     flat = torch.cat([p.reshape(-1) for p in parts])
     dist.all_reduce(flat, group=mesh.get_group(BATCH_AXIS))

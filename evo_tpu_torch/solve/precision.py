@@ -6,6 +6,9 @@ chunked reductions, and the result is folded to the correctly rounded
 float32 of the true sum, so the accumulation error of a long reduction does
 not grow with its depth. Used by `vo.ba.ba_solve(compensated=True)` and
 `solve.epipolar.eight_point(refine_null=True)`.
+
+`SegmentSum` is the port's own: the plain float32 scatter-add of the BA's
+normal equations in one order, fixed by the rows' keys, on every device.
 """
 
 from __future__ import annotations
@@ -42,21 +45,60 @@ def _chunk(o: int, n_chunks: int) -> int:
     return -(-o // n_chunks)  # ceil
 
 
+class SegmentSum:
+    """`index_add_` of rows [O, ...] into `n_out` slots by `idx` [O], summed
+    in an order that the rows' (slot, `key`) pairs alone fix.
+
+    `index_add_` on the card adds with atomics in the order its threads
+    arrive, so a float32 slot sum changes in its last bits from run to run.
+    Here the rows are sorted once, by slot and within a slot by `key` (two
+    stable sorts), and every call sums each slot's contiguous segment with
+    `torch.segment_reduce`, which adds a segment's rows one after another,
+    in the sorted order, on the CPU and on the card. Neither the threads nor
+    the order the rows come in can change that order, as long as no two rows
+    of one slot with different values share a key. Rows that already come
+    sorted so sum as `index_add_` sums them on the CPU, bit for bit.
+
+    Rows whose `keep` is False are left out of every sum (the BA's masked
+    observations, whose weight is 0: padding that would otherwise make one
+    slot's segment, and so one thread of the card's reduction, as long as
+    the padding). Leaving them out costs one host read, here.
+
+    Build it once per index array, outside a solver's loop; call it once per
+    value array. Float32 in, float32 sums out, as `index_add_`."""
+
+    def __init__(self, idx, n_out: int, key=None, keep=None):
+        idx = idx.long()
+        order = torch.arange(len(idx), device=idx.device)
+        if keep is not None:
+            order = order[keep.bool()]
+        if key is not None:
+            order = order[torch.argsort(key[order], stable=True)]
+        order = order[torch.argsort(idx[order], stable=True)]
+        self.order = order
+        # segment lengths from the sorted slots (no atomics, no host read)
+        edges = torch.arange(n_out + 1, device=idx.device)
+        self.lengths = torch.diff(torch.searchsorted(idx[order], edges))
+
+    def __call__(self, vals):
+        return torch.segment_reduce(vals[self.order], "sum", lengths=self.lengths,
+                                    axis=0, unsafe=True, initial=0.0)
+
+
 def compensated_scatter_add(idx, vals, n_out: int, n_chunks: int = 32):
     """Scatter-add `vals` [O, ...] into [n_out, ...] by `idx` [O] with an
     accumulation error bounded by the chunk length, not by O: each of
     `n_chunks` chunks of observations is scattered into its own partial
     accumulator, and the partials are combined by a compensated sum.
 
-    The chunks are scattered by one `index_put_(accumulate=True)`, which
-    adds the entries of one output slot in their order of appearance on
-    every device, so the result is the same from run to run."""
+    The chunks are scattered by one `SegmentSum`, which adds the entries of
+    one partial in their order of appearance on every device, so the result
+    is the same from run to run. (`index_put_(accumulate=True)` is not: on
+    the CPU its threads add [O, 6, 6] blocks in no fixed order.)"""
     o = vals.shape[0]
     c = _chunk(o, n_chunks)
     chunk_of = torch.arange(o, device=vals.device) // c
-    parts = torch.zeros((n_chunks * n_out,) + vals.shape[1:], dtype=vals.dtype,
-                        device=vals.device)
-    parts.index_put_((chunk_of * n_out + idx.long(),), vals, accumulate=True)
+    parts = SegmentSum(chunk_of * n_out + idx.long(), n_chunks * n_out)(vals)
     parts = parts.reshape((n_chunks, n_out) + vals.shape[1:])
     return fold(*compensated_reduce(parts, axis=0))
 

@@ -7,19 +7,22 @@ with Huber(0.8) per observation block, the intrinsics constant, and the
 first two active poses held fixed for gauge freedom. Observations are packed
 into padded arrays [O] with a mask; the per-observation Jacobians are
 analytic; the normal equations are assembled by scatter-adds into dense
-per-frame and per-landmark blocks; the landmark block is eliminated in
-closed form (batched 3x3 inverses), and the reduced camera system
-([6F, 6F], F <= 21) is solved densely by Cholesky. The LM loop is a Python
-loop that reads one flag per iteration.
+per-frame and per-landmark blocks (`observation_sums`: summed in one order on
+every device, so the card gives the same bits from run to run); the
+landmark block is eliminated in closed form (batched 3x3 inverses), and the
+reduced camera system ([6F, 6F], F <= 21) is solved densely by Cholesky. The
+LM loop is a Python loop that reads one flag per iteration.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from evo_tpu_torch.core import camera, lie
 from evo_tpu_torch.solve.lm import huber_weights
-from evo_tpu_torch.solve.precision import compensated_scatter_add
+from evo_tpu_torch.solve.precision import SegmentSum, compensated_scatter_add
 
 HUBER = 0.8
 MAX_ITERS = 50
@@ -51,11 +54,46 @@ def _obs_linearize(pose, lm, intr, p2d):
     return r, Jp, Jl
 
 
-def _scatter(idx, vals, n_out: int, compensated: bool):
+def observation_sums(obs_frame, obs_lm, F: int, L: int, compensated: bool = False,
+                     obs_mask=None):
+    """The three scatter-adds of the normal equations (by frame, by
+    landmark, by (landmark, frame) pair) for observations obs_frame, obs_lm
+    [O]. Each sums a slot's observations in the order of their (landmark,
+    frame) pair, which is the order the front end lists them in, so the sums
+    are `index_add_`'s on the CPU and the same on every run on the card.
+    Observations whose `obs_mask` is False (weight 0) are left out.
+    `compensated` takes the two-float chunked sums instead, over every row."""
+    obs_frame, obs_lm = obs_frame.long(), obs_lm.long()
+    pair = obs_lm * F + obs_frame
+    slots = ((obs_frame, F), (obs_lm, L), (pair, L * F))
     if compensated:
-        return compensated_scatter_add(idx, vals, n_out)
-    out = torch.zeros((n_out,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
+        return [functools.partial(compensated_scatter_add, i, n_out=n) for i, n in slots]
+    return [SegmentSum(i, n, key=pair, keep=obs_mask) for i, n in slots]
+
+
+def normal_equations(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, wmask,
+                     pose_fixed, sums, huber: float = HUBER):
+    """The normal-equation blocks (Hpp [F, 6, 6], Hll [L, 3, 3], A [L, F, 6,
+    3], bp [F, 6], bl [L, 3]) of the observations obs_frame, obs_lm [O],
+    obs_p2d [O, 2] at (poses [F, 7], landmarks [L, 3]): analytic Jacobians,
+    Huber IRLS weights times wmask [O], the fixed poses' Jacobians zeroed,
+    each block summed over the observations by `sums`
+    (`observation_sums`)."""
+    by_frame, by_lm, by_pair = sums
+    r, Jp, Jl = _obs_linearize(poses[obs_frame], landmarks[obs_lm], intr, obs_p2d)
+    # robust IRLS weight per 2-residual block
+    w = huber_weights((r * r).sum(-1), huber) * wmask  # [O]
+    Jp = torch.where(pose_fixed[obs_frame][:, None, None], torch.zeros_like(Jp), Jp)
+    wr = r * w[:, None]
+    wJp = Jp * w[:, None, None]
+    wJl = Jl * w[:, None, None]
+    F, L = poses.shape[0], landmarks.shape[0]
+    return (by_frame(wJp.transpose(1, 2) @ Jp),  # [O, 6, 6] summed by frame
+            by_lm(wJl.transpose(1, 2) @ Jl),
+            # per-(landmark, frame) coupling blocks A[l, f] = Σ_o w JpᵀJl
+            by_pair(wJp.transpose(1, 2) @ Jl).reshape(L, F, 6, 3),
+            by_frame((Jp.transpose(1, 2) @ wr[..., None])[..., 0]),
+            by_lm((Jl.transpose(1, 2) @ wr[..., None])[..., 0]))
 
 
 def ba_solve(
@@ -85,8 +123,8 @@ def ba_solve(
     tolerance: an accepted step whose relative cost decrease falls below it
     ends the solve, as does a damping grown past 1e6.
 
-    On the card the plain scatter-adds sum in no fixed order, so results
-    differ in the last bits from run to run.
+    The scatter-adds sum in one order on every device (`observation_sums`),
+    so the card's result is the same on every run.
 
     Returns (poses', landmarks', final_cost, initial_cost, iterations).
     """
@@ -96,7 +134,6 @@ def ba_solve(
     obs_frame = obs_frame.long()
     obs_lm = obs_lm.long()
     wmask = obs_mask.to(dtype)
-    obs_fixed = pose_fixed[obs_frame][:, None, None]
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     frames = torch.arange(F, device=dev)
@@ -108,30 +145,16 @@ def ba_solve(
         rho = torch.where(n <= huber, s, 2.0 * huber * n - huber * huber)
         return (rho * wmask).sum()
 
+    sums = observation_sums(obs_frame, obs_lm, F, L, compensated, obs_mask)
     # padding landmarks stay put
-    lm_has_obs = torch.zeros(L, dtype=dtype, device=dev).index_add_(0, obs_lm, wmask) > 0
+    lm_has_obs = sums[1](wmask[:, None])[:, 0] > 0
     pin_pose = pose_fixed.to(dtype)[:, None, None] * eye6
     pin_lm = (~lm_has_obs).to(dtype)[:, None, None] * eye3
 
     def step(poses, landmarks, lam, cost):
-        r, Jp, Jl = _obs_linearize(poses[obs_frame], landmarks[obs_lm], intr, obs_p2d)
-        # robust IRLS weight per 2-residual block
-        w = huber_weights((r * r).sum(-1), huber) * wmask  # [O]
-        Jp = torch.where(obs_fixed, torch.zeros_like(Jp), Jp)  # fixed poses
-        wr = r * w[:, None]
-        wJp = Jp * w[:, None, None]
-        wJl = Jl * w[:, None, None]
-        v_Hpp = wJp.transpose(1, 2) @ Jp  # [O, 6, 6]
-        v_Hll = wJl.transpose(1, 2) @ Jl  # [O, 3, 3]
-        v_bp = (Jp.transpose(1, 2) @ wr[..., None])[..., 0]
-        v_bl = (Jl.transpose(1, 2) @ wr[..., None])[..., 0]
-        # per-(landmark, frame) coupling blocks A[l, f] = Σ_o w JpᵀJl
-        v_A = wJp.transpose(1, 2) @ Jl  # [O, 6, 3]
-        Hpp = _scatter(obs_frame, v_Hpp, F, compensated)
-        Hll = _scatter(obs_lm, v_Hll, L, compensated)
-        bp = _scatter(obs_frame, v_bp, F, compensated)
-        bl = _scatter(obs_lm, v_bl, L, compensated)
-        A = _scatter(obs_lm * F + obs_frame, v_A, L * F, compensated).reshape(L, F, 6, 3)
+        Hpp, Hll, A, bp, bl = normal_equations(
+            poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, wmask, pose_fixed, sums,
+            huber)
         # damping (Marquardt diagonal scaling); fixed poses and unobserved
         # landmarks are kept invertible and pinned
         dpp = torch.diagonal(Hpp, dim1=1, dim2=2).clamp_min(1e-8)

@@ -36,9 +36,6 @@ positions atol 0.1, the last motion field atol 5e-3, vo_trajectory atol
 The checkpoint's table: bool and integer fields exact, float fields atol
 1e-3 (the centres' bar)."""
 
-import fcntl
-import os
-import pickle
 import types
 from functools import partial
 
@@ -61,6 +58,7 @@ from evo_tpu_torch.dist import mesh as tmesh
 from evo_tpu_torch.dist import multihost
 from evo_tpu_torch.run import evaluator
 from tests import torch_dist_ranks
+from tests.torch_run_cache import once_per_run
 from tests.test_run import square_dataset  # noqa: F401 (fixture)
 
 WORLD = 4
@@ -174,25 +172,6 @@ def _cases(dataset: str) -> dict:
 @pytest.fixture(scope="module")
 def cases(square_dataset):  # noqa: F811
     return _cases(square_dataset)
-
-
-def once_per_run(tmp_path_factory, name: str, compute):
-    """`compute()`'s result, computed once for the whole test run: the first
-    test worker to get here computes it, the others (under xdist) wait on
-    the lock and read it from the run's shared temporary directory."""
-    base = tmp_path_factory.getbasetemp()
-    # under xdist each worker's base is a directory of the run's own
-    shared = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
-    path = shared / f"{name}.pkl"
-    with open(shared / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.exists():
-            out = compute()
-            with open(path.with_suffix(".part"), "wb") as f:
-                pickle.dump(out, f)
-            os.replace(path.with_suffix(".part"), path)
-    with open(path, "rb") as f:
-        return pickle.load(f)
 
 
 @pytest.fixture(scope="module")
