@@ -5,10 +5,10 @@
 Phases (any failure raises and exits non-zero):
 1. environment: a CUDA card is required; prints the torch and CUDA versions
    and the card's name and power limit;
-2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc,
-   one nvcc for each source (and one for the alignment kernel's clock
-   build), all started together, and prints ptxas's register, spill and
-   shared-memory lines;
+2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc
+   (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu), one nvcc for each
+   source (and one for the alignment kernel's clock build), all started
+   together, and prints ptxas's register, spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
    re-budget) against its plain version `align.solve_step_ref` on the
@@ -20,12 +20,27 @@ Phases (any failure raises and exits non-zero):
    build (-DEVO_ALIGN_CLOCKS) must give the same bits, with each ready
    row's stage cycles adding up to its total; then `run/time_align.py`'s
    sweep over 1, 16 and 128 ready rows prints device and host µs and the
-   clock's split by stage (`kernels.align_step.STAGES`). Then the
+   clock's split by stage (`kernels.align_step.STAGES`). Then
+   compensation's kernels (`run/time_comp.py`): kernel A (`comp_tile`, the
+   tile residual and its forward-mode Jacobian, a block a tile row) against
+   autograd through the plain splat at [108, 256], [108, 1024] (edge and
+   variance losses), [864, 1024] (W = 8) and [24, 1024] on the 40 px
+   window's 120x120 tiles (the loss in strips): the score (the loss; r =
+   maxRes - score holds it to 6e-5 alone) within 1e-4 relative of the plain
+   score, printed beside the smallest plain score, r within 1e-4 relative
+   where no loss is taken, J within 1e-3, `escaped` equal; kernel B
+   (`comp_step`, a warp a window) at 108 tiles with W = 1 and 8 and at the 40
+   px grid's 24: its solve entry against `tile_system_ref` and its loop entry
+   (INIT | HEAD, then TAIL | HEAD) against `lm_step_ref` on a copy of its
+   state: decisions equal, costs 1e-5 relative, steps held to a float64
+   solve (1e-4 of the step, or twice the plain version's own error); the
+   library yardstick `cholesky_ex` + `cholesky_solve` timed beside. Then the
    generic splat (forward and backward) and the fused
    warp-and-splat entries against their plain PyTorch versions on the card,
    at the shapes the main path gives them ([108, 256] and [108, 1024] events
-   into 60x60 tiles, [1, 15000] into 180x240, [24, 1024] into 120x120 for
-   phase 6), the fused entries also
+   into 60x60 tiles, [1, 15000] into 180x240, [24, 1024] into 120x120, the
+   40 px tiles' shape, on no path since kernel A took them), the fused
+   entries also
    against the unfused kernel (positions must agree exactly). Each is timed
    as many launches between one pair of CUDA events behind work already
    queued on the card, so the time is the device's and not the host's; the
@@ -38,17 +53,20 @@ Phases (any failure raises and exits non-zero):
 5. main path: simulates the 3walls scene (1.2 s at 20 fps, contrast 0.05,
    seed 3: DAVIS density, about 1.1 Mev/s) on the card and runs the tracker
    experiment with contrast compensation through `Evaluator`, checks its
-   artifacts, and checks that the run went through the kernels; one
-   compensation window is also solved on the CPU with the plain splat and
-   held against the card's solve;
+   artifacts, and checks that the run went through the kernels
+   (compensation: kernels A and B launched, no fused splat),
+   printing compensation seconds and its host reads a window; one
+   compensation window is also solved on the CPU with the plain versions
+   and held against the card's solve;
 6. large tiles: one compensation window with 40 px tiles, whose 120x120
-   padded images take the generic kernels (forward and backward) instead of
-   the fused entries, held against the CPU's solve;
+   padded images kernel A takes too (the loss in strips), with kernel B's
+   loop, held against the CPU's solve; no fused or generic Gaussian splat
+   runs;
 7. standard mode: the same scene through the standard mode (tracker ->
    VO, compensation on, default parameters, no device given), first on the
    synchronous drive (`pipelined=False`). Every pose of vo_trajectory.txt
    must be finite, at least 6 keyframes accepted, the VO solves found on the
-   card, the fused splat launched, and the Sim(3)-aligned ATE over the
+   card, compensation on kernels A and B, and the Sim(3)-aligned ATE over the
    scene's depth under its limit. The first 12 frames are run once more with
    the VO geometry on the host CPU, and the `vo` stage seconds of both are
    printed side by side. Before it, the batched SVDs of the two RANSACs are
@@ -65,8 +83,9 @@ Phases (any failure raises and exits non-zero):
    frames: trajectory.txt with the same track ids and timestamps and
    positions within 1e-3 px, the last motion field within 1e-4 px/ms, as many
    compensation windows, keyframes within 1, the ATE under its limit, VO on
-   the card, the fused splat launched from the evo-comp thread on another
-   stream than the default, both workers ended and nothing left in flight
+   the card, compensation's kernels (and the count splat) launched from the
+   evo-comp thread on another stream than the default, both workers ended
+   and nothing left in flight
    after `finish()`. Wall and stage seconds of all four runs go into one
    `pipelined path` JSON line, beside the largest and the sum of the
    synchronous run's stages;
@@ -85,8 +104,9 @@ Phases (any failure raises and exits non-zero):
    run on the evo-vo thread, the first auto-checkpoint taken at frame 4 with
    windows in flight, and the run resumed from it through frames 4-11
    writing the same trajectory.txt; (c) `profile_trace`
-   around two frame windows of the default drive: the trace names the fused
-   splat kernels, which the evo-comp thread launched; (d) the patch views,
+   around two frame windows of the default drive: the trace names
+   compensation's kernels (`comp_tile_kernel`, `comp_lm_step_kernel`); (d)
+   the patch views,
    the feature overlay and the compensated image written as PNGs by the
    port's own writer (signature and size checked), `predicted_nabla` and
    `cost_map` finite and on the card; (e) `evaluate_tracker` on phase 5's
@@ -94,15 +114,15 @@ Phases (any failure raises and exits non-zero):
    one timed solve per variant;
 11. temporal batching: (a) the 83 compensation windows of the scene (its
    events in blocks of 15,000, as the evaluator cuts them) solved cold one
-   by one (W = 1) and in batches of W = 4 and 8 (`dist.temporal`, one fused
-   splat launch over the W·108 tiles per LM iteration): each window's
-   initial cost within 1e-5 relative, its field within 5e-3 px/ms and its
-   count image within 1e-3 of the W = 1 solve, and the seconds, fused
-   launches and host reads of each W printed; the fused entries also timed
-   at [W·108, 1024] against their plain versions; (b) the default drive
+   by one (W = 1) and in batches of W = 4 and 8 (`dist.temporal`, one launch
+   of kernel A over the W·108 tiles and one of kernel B a trip): each
+   window's field and costs equal to its W = 1 solve bit for bit, its count
+   image within 1e-3, and the seconds, launches and host reads of each W
+   printed; the fused splat entries also timed at [W·108, 1024] against
+   their plain versions; (b) the default drive
    with `temporal_batch=8` over the first 12 frames, timed beside the same
-   drive without it: trajectory.txt as phase 7's 12-frame run (ids, timestamps, positions within 1e-3 px), the fused
-   splat launched from the evo-comp thread on a stream of its own, nothing
+   drive without it: trajectory.txt as phase 7's 12-frame run (ids, timestamps, positions within 1e-3 px),
+   compensation launched from the evo-comp thread on a stream of its own, nothing
    left in flight after `finish()`; (c) a (space, batch) mesh of one rank
    over NCCL on the card: `sharded_splat`, `sharded_tile_solve_data` and
    `sharded_normal_equations` each against its one-device computation on
@@ -115,13 +135,15 @@ Phases (any failure raises and exits non-zero):
    unmeshed default-drive run (ids, timestamps, positions within 1e-3 px),
    the ATE under its limit and within 1e-4 of that run's, the last motion
    field within 1e-4 px/ms, keyframes within 1, and as many launches of
-   each splat kernel; wall and stage seconds beside the unmeshed run's;
+   the splat, alignment and kernel A (the meshed tile solve keeps its host
+   loop and calls kernel B's solve entry); wall and stage seconds beside the
+   unmeshed run's;
    (b) two gloo ranks on the one card (`multihost.launch`, a (1, 2) mesh:
    gloo moves no point to point on CUDA tensors, and with one ``space``
    rank the tile solve exchanges no halo), the standard mode on the
    default drive over the first 12 frames: both ranks' trajectory.txt
-   byte-identical, each rank on the card with its splat and alignment
-   launches counted, its ATE under the limit, within twice that of phase
+   byte-identical, each rank on the card with its splat, alignment and
+   compensation launches counted, its ATE under the limit, within twice that of phase
    7's 12-frame synchronous run and its keyframes within 1 of that run's;
    a 128-row table scanned on the card as one block and as two blocks of
    64 gives the same bits (`block_split_check`), and against that run's
@@ -165,6 +187,12 @@ SOURCE = "evo_tpu_torch/csrc/splat.cu"
 REPLACES = "evo_tpu/kernels/splat_pallas.py:67"
 ALIGN_SOURCE = "evo_tpu_torch/csrc/align_step.cu"
 ALIGN_REPLACES = "evo_tpu/tracker/align.py:494"  # optimize_ready_patches, then :396
+COMP_TILE_SOURCE = "evo_tpu_torch/csrc/comp_tile.cu"
+COMP_TILE_REPLACES = "evo_tpu/tracker/compensate.py:138"  # tile_residual under jacfwd (:207)
+COMP_STEP_SOURCE = "evo_tpu_torch/csrc/comp_step.cu"
+COMP_STEP_REPLACES = "evo_tpu/tracker/compensate.py:227"  # solve_motion_field's step
+# compensation's kernels' names as `nvcc.launch` sees them, and the splat's
+COMP_LAUNCHES = ("evo_comp_tile", "evo_comp_lm_step", "evo_comp_solve", "evo_splat_", "evo_warp_")
 # operations of the alignment kernel, counted from its code: a linearization
 # costs about 480 a rect pixel (two Catmull-Rom tap sets with derivatives, 32
 # gathered taps contracted three ways, cos and sin, the residual and its
@@ -516,6 +544,35 @@ def phase_align_clock(kalign, timer, dev, label: str, table, g, got, ran, cost, 
                 sm_clock_mhz=cur)
 
 
+def phase_comp_kernels(timer, dev, label: str, floor_ms: float) -> list[dict]:
+    """Compensation's kernels against their plain versions on the card, at
+    the main path's shapes (`run/time_comp.py`): kernel A at [108, 256],
+    [108, 1024] (both losses), [864, 1024] (W = 8) and the 40 px grid's
+    [24, 1024]; kernel B at 108 tiles with W = 1 and 8, and at the 40 px
+    grid's 24 tiles."""
+    from evo_tpu_torch.run.time_comp import check_comp_step, check_comp_tile
+
+    rows = [check_comp_tile(timer, dev, nw, e, loss, REPS, tile)
+            for nw, e, loss, tile in ((1, 256, "edge", 20), (1, 1024, "edge", 20),
+                                      (1, 1024, "variance", 20), (8, 1024, "edge", 20),
+                                      (1, 1024, "edge", 40))]
+    rows += [check_comp_step(timer, dev, nw, tile, REPS)
+             for nw, tile in ((1, 20), (8, 20), (1, 40))]
+    for r in rows:
+        r["floor_ms"] = floor_ms
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        extra = (f"score rel {r['score_rel_err']:.2e} of scores from {r['score_min']:.3e}, "
+                 f"r rel {r['r_rel_err']:.2e} where no loss is taken"
+                 if r["kernel"] == "comp_tile" else
+                 f"solve entry {r['solve_ms'] * 1e3:.2f} us, off a float64 solve by "
+                 f"{r['solve_of_step']:.2e} of the step (plain {r['plain_solve_of_step']:.2e})")
+        print(f"kernel {r['kernel']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} ({extra})  "
+              f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
+              f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})  "
+              f"plain {r['plain_ms'] * 1e3:.2f} us  library {lib} ({label})", flush=True)
+    return rows
+
+
 def phase_sweep(splat, timer, dev, label: str) -> None:
     """The forward tile kernel with private copies of the image in shared
     memory (as many as warps: plain adds; fewer: atomics) and the backward,
@@ -545,20 +602,37 @@ def phase_sweep(splat, timer, dev, label: str) -> None:
 
 
 def counts(splat) -> dict:
-    """Launches of every kernel since the last `reset_counts`."""
-    from evo_tpu_torch.kernels import align_step
+    """Launches of every kernel since the last `reset_counts` (comp_step:
+    both of its entries; comp_step_solve: the solve entry alone), and
+    compensation's host reads of its stop flag."""
+    from evo_tpu_torch.kernels import align_step, comp_step, comp_tile
+    from evo_tpu_torch.tracker import compensate
 
     return {"splat_fwd": splat.launches_fwd, "splat_bwd": splat.launches_bwd,
             "warp_splat_fwd": splat.launches_warp_fwd,
             "warp_splat_bwd": splat.launches_warp_bwd,
-            "align_step": align_step.launches_align}
+            "align_step": align_step.launches_align,
+            "comp_tile": comp_tile.launches_comp_tile,
+            "comp_step": comp_step.launches_step + comp_step.launches_solve,
+            "comp_step_solve": comp_step.launches_solve,
+            "comp_host_reads": compensate.host_reads}
 
 
 def reset_counts(splat) -> None:
-    from evo_tpu_torch.kernels import align_step
+    from evo_tpu_torch.kernels import align_step, comp_step, comp_tile
+    from evo_tpu_torch.tracker import compensate
 
-    splat.reset_counts()
-    align_step.reset_counts()
+    for module in (splat, align_step, comp_step, comp_tile, compensate):
+        module.reset_counts()
+
+
+def check_compensation_kernels(launches: dict, what: str) -> None:
+    """Compensation ran on kernels A and B alone: no fused splat (the plain
+    version's)."""
+    if launches["comp_tile"] <= 0 or launches["comp_step"] <= 0:
+        raise AssertionError(f"{what} never launched comp_tile or comp_step: {launches}")
+    if launches["warp_splat_fwd"] or launches["warp_splat_bwd"]:
+        raise AssertionError(f"{what}: compensation took the plain version: {launches}")
 
 
 def check_window(comp, args, dev, what: str) -> None:
@@ -618,6 +692,8 @@ def phase_main_path(splat, dev, label: str):
         events_per_s=c["events"] / wall,
         stage_s={k: v for k, v in ev.counters.times.items()},
         launches=launches,
+        compensation_s=ev.counters.times.get("compensation"),
+        host_reads_per_window=launches["comp_host_reads"] / max(int(windows), 1),
     )
     print(f"main path ({label}): " + json.dumps(stats), flush=True)
 
@@ -640,11 +716,12 @@ def phase_main_path(splat, dev, label: str):
         raise AssertionError("the first compensation window did not lower its cost")
     if ev.motion_field is None or not np.isfinite(ev.motion_field).all():
         raise AssertionError("motion field missing or not finite")
-    # compensation goes through the fused entries, the count image through
-    # the generic forward; the generic backward belongs to the next phase
-    for name in ("warp_splat_fwd", "warp_splat_bwd", "splat_fwd", "align_step"):
+    # compensation goes through kernels A and B, the count image through the
+    # generic forward; the generic backward belongs to the next phase
+    for name in ("splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    check_compensation_kernels(launches, "the main path")
     if launches["splat_bwd"] != 0:
         raise AssertionError("compensation took the unfused backward")
 
@@ -708,31 +785,33 @@ def check_same_tracks(ref: dict, run: dict, what: str, fields: bool = True) -> d
 
 def run_standard(splat, dataset, params, max_frames=None) -> dict:
     """One run of the standard mode, no device given. Returns the evaluator,
-    its wall seconds, splat launch counts, (kernel, thread, stream) of every
-    splat launch, the rows of trajectory.txt and vo_trajectory.txt,
-    and what `finish()` left alive."""
+    its wall seconds, launch counts, (kernel, thread, stream) of every launch
+    of compensation's and the splat's kernels, the rows of trajectory.txt
+    and vo_trajectory.txt, and what `finish()` left alive."""
+    from evo_tpu_torch.kernels import nvcc
     from evo_tpu_torch.run.evaluator import Evaluator
 
     seen = set()
-    inner = splat._launch
+    inner = nvcc.launch
 
-    def recording(name, on, *args):
-        seen.add((name, threading.current_thread().name,
-                  torch.cuda.current_stream(on.device).cuda_stream))
-        return inner(name, on, *args)
+    def recording(fn, on, *args):
+        if fn.__name__.startswith(COMP_LAUNCHES):
+            seen.add((fn.__name__, threading.current_thread().name,
+                      torch.cuda.current_stream(on.device).cuda_stream))
+        return inner(fn, on, *args)
 
     with tempfile.TemporaryDirectory() as tmp:
         params.output_dir = tmp
         ev = Evaluator(dataset, params)
         reset_counts(splat)
-        splat._launch = recording
+        nvcc.launch = recording
         try:
             t0 = time.perf_counter()
             ev.run(max_frames=max_frames)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            splat._launch = inner
+            nvcc.launch = inner
         launches = counts(splat)
         paths = ev.finish()
         poses = np.loadtxt(paths["vo_trajectory"], ndmin=2)
@@ -778,9 +857,14 @@ def check_standard(run: dict, what: str) -> dict:
         raise AssertionError(f"{what}: {len(poses)} keyframes accepted: no ATE exists below 6")
     if vo.solve_devices != {"cuda"} or not vo.intr.is_cuda:
         raise AssertionError(f"{what}: VO geometry ran on {vo.solve_devices}, not on the card")
-    for name in ("warp_splat_fwd", "warp_splat_bwd", "splat_fwd", "align_step"):
+    for name in ("splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"{what} never launched {name}")
+    check_compensation_kernels(launches, what)
+    stats["compensation_s"] = stats["stage_s"].get(
+        "compensation", stats["stage_s"].get("compensation_worker"))
+    stats["host_reads_per_window"] = launches["comp_host_reads"] / max(
+        stats["compensation_windows"], 1)
     if not stats["ate_over_max_depth"] < ATE_OVER_MAX_DEPTH_LIMIT:
         raise AssertionError(
             f"{what}: ate_over_max_depth {stats['ate_over_max_depth']:.4f} is not under "
@@ -801,9 +885,8 @@ def phase_standard_mode(splat, dataset, dev, label: str):
     sync = run_standard(splat, dataset, EvaluatorParams(pipelined=False))
     stats = check_standard(sync, "the synchronous standard mode")
     print(f"vo path, synchronous drive ({label}): " + json.dumps(stats), flush=True)
-    # (a backward is launched by autograd's own thread, on its forward's stream)
     if ({st for _, _, st in sync["seen"]} != {torch.cuda.default_stream(dev).cuda_stream}
-            or any(t != "MainThread" for name, t, _ in sync["seen"] if "bwd" not in name)):
+            or any(t != "MainThread" for _, t, _ in sync["seen"])):
         raise AssertionError(
             f"the synchronous drive launched off its thread or stream: {sync['seen']}")
 
@@ -888,14 +971,13 @@ def phase_pipelined(splat, dataset, dev, label: str, sync_stats: dict, sync: dic
         if abs(stats["keyframes"] - ref_stats["keyframes"]) > 1:
             raise AssertionError(f"{name}: {stats['keyframes']} keyframes, "
                                  f"{ref_stats['keyframes']} synchronous")
-        # every splat of this mode belongs to compensation: forwards from the
-        # evo-comp thread, backwards from autograd's thread on the forward's
-        # stream, which is the worker's own
+        # every launch of compensation's kernels and of the splat belongs to
+        # compensation: from the evo-comp thread, on its own stream
         streams = {st for _, _, st in r["seen"]}
         if (len(streams) != 1 or default_stream in streams
-                or not all(t.startswith("evo-comp") for k, t, _ in r["seen"] if "bwd" not in k)
-                or not any("warp_splat_bwd" in k for k, _, _ in r["seen"])):
-            raise AssertionError(f"{name}: the splats were launched from {r['seen']}, not "
+                or not all(t.startswith("evo-comp") for _, t, _ in r["seen"])
+                or not any(k == "evo_comp_lm_step" for k, _, _ in r["seen"])):
+            raise AssertionError(f"{name}: compensation was launched from {r['seen']}, not "
                                  "from the evo-comp thread on one stream of its own")
         if name == "pipelined":
             default_run = r
@@ -1003,8 +1085,7 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
         if not res["ate_over_max_depth"] < ATE_OVER_MAX_DEPTH_LIMIT:
             raise AssertionError(f"the resumed run's ate_over_max_depth "
                                  f"{res['ate_over_max_depth']} is not under the limit")
-        if launches["warp_splat_fwd"] <= 0 or launches["warp_splat_bwd"] <= 0:
-            raise AssertionError("the resumed run never launched the fused splat")
+        check_compensation_kernels(launches, "the resumed run")
         if "motion_field_max_diff" not in res:
             raise AssertionError("the resumed run solved no compensation window")
         out["resume"] = res
@@ -1104,7 +1185,7 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
         back.run(max_frames=12, start_frame=back.image_num)
         paths = back.finish()
         resumed_launches = counts(splat)
-        if back.image_num != 12 or resumed_launches["warp_splat_fwd"] <= 0:
+        if back.image_num != 12 or resumed_launches["comp_tile"] <= 0:
             raise AssertionError(f"the resume from frame {saved[0][1]} ended at frame "
                                  f"{back.image_num} with launches {resumed_launches}")
         same = check_same_tracks(wd["run"], dict(
@@ -1132,16 +1213,17 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
         with open(trace_path) as f:
             events = json.load(f)["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
-        splats = [e for e in kernels if "splat_tile" in e.get("name", "")]
-        streams = sorted({e.get("args", {}).get("stream") for e in splats}, key=str)
+        comps = [e for e in kernels if "comp_" in e.get("name", "")]
+        streams = sorted({e.get("args", {}).get("stream") for e in comps}, key=str)
         out["profile"] = dict(
             seconds=time.perf_counter() - t0, trace_mb=os.path.getsize(trace_path) / 1e6,
-            kernels=len(kernels), splat_tile_kernels=len(splats),
-            splat_streams=streams, launches=launches,
-            device_ms=sum(e.get("dur", 0) for e in kernels) / 1e3)
-        if not any("splat_tile_fwd" in e["name"] for e in splats) or not any(
-                "splat_tile_bwd" in e["name"] for e in splats):
-            raise AssertionError("the trace does not name the fused splat kernels")
+            kernels=len(kernels), compensation_kernels=len(comps),
+            compensation_streams=streams, launches=launches,
+            device_ms=sum(e.get("dur", 0) for e in kernels) / 1e3,
+            compensation_device_ms=sum(e.get("dur", 0) for e in comps) / 1e3)
+        if not any("comp_tile_kernel" in e["name"] for e in comps) or not any(
+                "comp_lm_step_kernel" in e["name"] for e in comps):
+            raise AssertionError("the trace does not name compensation's kernels")
 
     # (e) the tracker's quality on phase 5's tracks, and the precision report
     t0 = time.perf_counter()
@@ -1169,9 +1251,9 @@ def phase_runtime_extras(splat, dataset, dev, label: str, sync: dict, trajectori
 
 
 def phase_large_tiles(splat, window, dev) -> dict:
-    """`compensate_window` with 40 px tiles (6 x 4 on DAVIS240C): the 120x120
-    padded images are too large for one block, so warp and reduction are
-    PyTorch and the splat is the generic kernel, forward and backward."""
+    """`compensate_window` with 40 px tiles (6 x 4 on DAVIS240C): kernel A
+    takes their 120x120 padded images (the loss in strips of pool rows),
+    kernel B the loop."""
     from evo_tpu_torch.tracker import compensate as comp
 
     params = comp.CompensateParams(tile=40, max_iters=8)
@@ -1179,11 +1261,9 @@ def phase_large_tiles(splat, window, dev) -> dict:
     check_window(comp, (*window, params), dev, "first window, 40 px tiles")
     launches = counts(splat)
     print("large tiles (40 px): " + json.dumps(launches), flush=True)
-    for name in ("splat_fwd", "splat_bwd"):
-        if launches[name] <= 0:
-            raise AssertionError(f"the 40 px tiles never launched {name}")
-    if launches["warp_splat_fwd"] or launches["warp_splat_bwd"]:
-        raise AssertionError("120x120 padded tiles took the one-block kernels")
+    check_compensation_kernels(launches, "the 40 px tiles")
+    if launches["splat_bwd"]:  # autograd through the generic splat: the plain version
+        raise AssertionError(f"the 40 px tiles took the plain version: {launches}")
     return launches
 
 
@@ -1257,7 +1337,8 @@ def compensation_windows(dataset) -> list:
 
 
 def phase_temporal_windows(splat, windows, dev, label: str) -> dict:
-    """(a): every window cold, one by one and in batches of W."""
+    """(a): every window cold, one by one and in batches of W: bit for bit
+    the same field and costs."""
     from evo_tpu_torch.dist import temporal
     from evo_tpu_torch.tracker import compensate as comp
 
@@ -1276,28 +1357,33 @@ def phase_temporal_windows(splat, windows, dev, label: str) -> dict:
         seconds = time.perf_counter() - t0
         launches = counts(splat)
         calls = -(-len(windows) // w)
-        # one read per LM iteration (each iteration launches the fused
-        # backward once) and one copy to the host per call
+        # the LM's reads of its stop flag, and one copy to the host per call
         out[f"W={w}"] = dict(seconds=seconds, windows=len(res), calls=calls,
+                             comp_tile=launches["comp_tile"], comp_step=launches["comp_step"],
                              warp_splat_fwd=launches["warp_splat_fwd"],
                              warp_splat_bwd=launches["warp_splat_bwd"],
                              count_splats=launches["splat_fwd"],
-                             host_reads=launches["warp_splat_bwd"] + calls)
+                             host_reads=launches["comp_host_reads"] + calls)
         results[w] = res
     ref = results[1]
     for w in BATCHES:
         errs = dict(cost0_rel=0.0, vel=0.0, img=0.0)
-        for (v1, i1, _, c01), (v, i, _, c0) in zip(ref, results[w]):
+        same = True
+        for (v1, i1, c1, c01), (v, i, c, c0) in zip(ref, results[w]):
             errs["cost0_rel"] = max(errs["cost0_rel"], abs(c0 - c01) / abs(c01))
             errs["vel"] = max(errs["vel"], float(np.abs(v - v1).max()))
             errs["img"] = max(errs["img"], float(np.abs(i - i1).max()))
+            same = same and np.array_equal(v, v1) and c == c1 and c0 == c01
         out[f"W={w}"]["max_diff_to_W=1"] = errs
+        out[f"W={w}"]["bitwise_to_W=1"] = same
         out[f"W={w}"]["speedup_vs_W=1"] = out["W=1"]["seconds"] / out[f"W={w}"]["seconds"]
-        if errs["cost0_rel"] > 1e-5 or errs["vel"] > 5e-3 or errs["img"] > 1e-3:
+        # one block a tile row and one a window: a window's field and costs
+        # do not depend on the windows solved beside it
+        if not same or errs["img"] > 1e-3:
             raise AssertionError(f"W={w}: batched windows differ from the one-window solves "
                                  f"by {errs}")
-        if out[f"W={w}"]["warp_splat_fwd"] <= 0 or out[f"W={w}"]["warp_splat_bwd"] <= 0:
-            raise AssertionError(f"W={w} never launched the fused splat")
+        if out[f"W={w}"]["comp_tile"] <= 0 or out[f"W={w}"]["comp_step"] <= 0:
+            raise AssertionError(f"W={w} never launched comp_tile or comp_step")
     print(f"temporal batching, {len(windows)} windows ({label}): " + json.dumps(out), flush=True)
     return out
 
@@ -1318,7 +1404,7 @@ def phase_temporal_drive(splat, dataset, dev, label: str, sync12: dict) -> dict:
                                    fields=False))
     streams = {st for _, _, st in r["seen"]}
     if (len(streams) != 1 or default_stream in streams
-            or not all(t.startswith("evo-comp") for k, t, _ in r["seen"] if "bwd" not in k)):
+            or not all(t.startswith("evo-comp") for _, t, _ in r["seen"])):
         raise AssertionError(f"temporal batches launched from {r['seen']}, not from the "
                              "evo-comp thread on one stream of its own")
     if "compensation_batched" not in stats["stage_s"]:
@@ -1571,7 +1657,11 @@ def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dic
             if abs(stats["keyframes"] - ref_stats["keyframes"]) > 1:
                 raise AssertionError(f"meshed: {stats['keyframes']} keyframes, "
                                      f"{ref_stats['keyframes']} unmeshed")
-            if run["launches"] != ref["launches"]:
+            # the meshed solve keeps its host loop: kernel B's solve entry at
+            # each trip where the unmeshed loop launches its loop entry
+            shared = ("splat_fwd", "splat_bwd", "align_step", "comp_tile")
+            if any(run["launches"][k] != ref["launches"][k] for k in shared) \
+                    or run["launches"]["comp_step_solve"] <= 0:
                 raise AssertionError(f"meshed launches {run['launches']} against "
                                      f"{ref['launches']} unmeshed")
             stats["unmeshed"] = dict(wall_s=ref_stats["wall_s"], stage_s=ref_stats["stage_s"],
@@ -1600,7 +1690,7 @@ def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dic
                                  f"{r['backend']} with {r['table_rows']} rows")
         if r["trajectory"] != ranks[0]["trajectory"]:
             raise AssertionError(f"rank {r['rank']}'s trajectory.txt is not rank 0's")
-        if min(r["launches"][k] for k in ("splat_fwd", "warp_splat_fwd", "warp_splat_bwd",
+        if min(r["launches"][k] for k in ("splat_fwd", "comp_tile", "comp_step",
                                           "align_step")) <= 0:
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}")
         if not (r["ate_over_max_depth"] is not None
@@ -1675,7 +1765,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from evo_tpu_torch.kernels import align_step, nvcc, splat
+    from evo_tpu_torch.kernels import align_step, comp_step, comp_tile, nvcc, splat
     from evo_tpu_torch.run.time_splat import Timer, card
 
     t_start = time.perf_counter()
@@ -1687,13 +1777,15 @@ def main() -> int:
 
     # one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for build in [pool.submit(lib) for lib in (splat._lib, align_step._lib,
-                                                   partial(align_step._lib, clocks=True))]:
+    libs = (splat._lib, align_step._lib, partial(align_step._lib, clocks=True), comp_tile._lib,
+            comp_step._lib)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for build in [pool.submit(lib) for lib in libs]:
             build.result()
-    print(f"built the splat and alignment kernels (and the latter's clock build) in "
+    print(f"built the splat, alignment (and its clock build) and compensation kernels in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("evo_splat", "evo_align_step", "evo_align_step_clock"):
+    for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
+                 "evo_comp_step"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -1701,6 +1793,7 @@ def main() -> int:
     timer = Timer(dev)
     rows = phase_kernels(splat, timer, dev, label)
     align_row = phase_align_step(timer, dev, label, rows[0]["floor_ms"])
+    comp_rows = phase_comp_kernels(timer, dev, label, rows[0]["floor_ms"])
     phase_sweep(splat, timer, dev, label)
     phase_svd_methods(timer, dev, label)
     del timer
@@ -1727,9 +1820,9 @@ def main() -> int:
     meshed = phase_meshed(splat, dataset, dev, label, default_run, sync12)
     print(f"the smoke so far {time.perf_counter() - t_start:.2f} s", flush=True)
 
-    # each entry at the shape its path gives it; the other shapes are printed
-    # above. The generic entries serve what the fused ones do not: the count
-    # image (main path) and tiles that outgrow one block (the 40 px window)
+    # each entry at the shape its path gives it (or gave it, for the entries
+    # compensation's kernels took over); the other shapes are printed above.
+    # The generic forward serves the count image (main path)
     at_shape = {"splat_fwd": "nearest [1, 15000]", "splat_bwd": "gaussian [24, 1024]",
                 "warp_splat_fwd": f"gaussian [{TILES}, 1024]",
                 "warp_splat_bwd": f"gaussian [{TILES}, 1024]"}
@@ -1741,7 +1834,8 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=REPLACES,
             # the tracker experiment's run; the standard mode's own counts
             # are in the `vo path` line
-            launches=large[name] if name == "splat_bwd" else stats["launches"][name],
+            launches=stats["launches"][name],
+            launches_large_tiles=large[name],
             launches_standard_mode=vo_stats["launches"][name],
             launches_pipelined=pipe_stats["pipelined"]["launches"][name],
             launches_mesh=meshed["a"]["launches"][name],
@@ -1750,7 +1844,14 @@ def main() -> int:
             bound_by=at["bound_by"], library_ms=at["library_ms"],
             floor_ms=at["floor_ms"], host_us=at["host_us"],
         ))
+        if name == "splat_bwd":
+            kernels[-1]["note"] = (
+                "on no path since comp_tile took the 40 px tiles (phase 6, which it served "
+                "before): held to its plain version above")
         if name.startswith("warp_splat"):
+            kernels[-1]["note"] = (
+                "on no path since comp_tile took the 20 px tiles: launches 0 in every run; "
+                "held to its plain version above")
             # the default drive with temporal_batch=8 (11 (b)), and the
             # batched solves' shapes (11 (a))
             kernels[-1]["launches_temporal_batch"] = temporal_drive["launches"][name]
@@ -1773,6 +1874,30 @@ def main() -> int:
         bound_by=align_row["bound_by"], library_ms=None, floor_ms=align_row["floor_ms"],
         host_us=align_row["host_us"], errors=align_row["errors"], trips=align_row["trips"],
         sweep=align_row["sweep"]))
+    # compensation's kernels, each at the tracker experiment's shape (W = 1,
+    # 108 tiles; kernel A at E = 1024), the other shapes beside it
+    for name, source, replaces, main_shape in (
+            ("comp_tile", COMP_TILE_SOURCE, COMP_TILE_REPLACES, "edge [108, 1024]"),
+            ("comp_step", COMP_STEP_SOURCE, COMP_STEP_REPLACES, "1 x 108 tiles")):
+        mine = [r for r in comp_rows if r["kernel"] == name]
+        at = next(r for r in mine if r["shape"].startswith(main_shape))
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=stats["launches"][name],
+            launches_standard_mode=vo_stats["launches"][name],
+            launches_pipelined=pipe_stats["pipelined"]["launches"][name],
+            launches_temporal_batch=temporal_drive["launches"][name],
+            launches_temporal_windows={k: v[name] for k, v in temporal.items()},
+            launches_mesh=meshed["a"]["launches"][name],
+            launches_mesh_gloo_ranks=[r["launches"][name] for r in meshed["b"]["ranks"]],
+            launches_large_tiles=large[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine), shape=at["shape"],
+            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by=at["bound_by"], library_ms=at["library_ms"], floor_ms=at["floor_ms"],
+            host_us=at["host_us"],
+            other_shapes={r["shape"]: {k: r[k] for k in (
+                "ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")} for r in mine if r is not at}))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

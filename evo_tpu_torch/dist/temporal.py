@@ -5,9 +5,11 @@ Compensation windows are independent: a window's tile solve reads only its
 own events, and its result feeds artifacts, never the tracker's state. So W
 buffered windows can be solved at once, with the same result per window as
 solving each alone (cold). On one card (`mesh=None`) that is the batched LM
-of `tracker.compensate.solve_motion_field_batched`: one fused splat launch
-over the W·T tiles per iteration and one host read per iteration for all W
-windows, where the JAX package vmaps the solve. With a mesh the windows are
+of `tracker.compensate.solve_motion_field_batched`: its device-side loop
+launches kernels A and B once each a trip over all W windows (one block a
+tile row, one a window, so a window's bits do not depend on the batch), with
+a read of the stop flag every few trips, where the JAX package vmaps the
+solve. With a mesh the windows are
 split over the ``batch`` ranks, each rank solves its block batched, and the
 solved fields are gathered.
 
@@ -61,7 +63,7 @@ def compensate_windows_batched(windows, params=None, height: int = 180,
     dev = resolve(device)
     built = [comp.build_tile_data(x, y, t_us, p, height, width, dev)
              for (x, y, t_us) in windows]
-    edge_idx, ty_n, tx_n = built[0][1], built[0][2], built[0][3]
+    edges, ty_n, tx_n = built[0][1], built[0][2], built[0][3]
     e_max = max(b[0].ex.shape[1] for b in built)
     padded = [_pad_tile_data(b[0], e_max) for b in built]
     w = len(windows)
@@ -76,7 +78,7 @@ def compensate_windows_batched(windows, params=None, height: int = 180,
         padded = padded[block(mesh, BATCH_AXIS, len(padded))]
     kw = dict(tile=p.tile, scale=p.scale, tv_weight=p.tv_weight, tv_huber=p.tv_huber,
               max_iters=p.max_iters, loss=p.loss)
-    vels, costs, costs0 = comp.solve_motion_field_batched(_stack(padded), edge_idx, **kw)
+    vels, costs, costs0 = comp.solve_motion_field_batched(_stack(padded), edges, **kw)
     if mesh is not None:
         group = mesh.get_group(BATCH_AXIS)
         vels = all_gather_cat(vels, group)

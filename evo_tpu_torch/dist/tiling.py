@@ -9,15 +9,19 @@ counterpart of `evo_tpu/dist/tiling.py`.
   each rank solves its rows and the results are gathered. Patch solves are
   independent.
 - `sharded_tile_solve_data`: the tile grid's columns are split over
-  ``space``; each rank runs the per-tile work (fused warp-splat, edge loss,
-  Jacobian) for its columns only, the TV edges across a shard boundary read
-  the right neighbour's first column through `halo.exchange_halo`, and one
-  `all_gather` ships the compressed system pieces (per-tile 2x2 blocks and
-  gradient terms, per-owned-edge (w², d)). The first rank of the ``space``
-  group assembles and factorises the 2T x 2T system and broadcasts the
-  update; each rank takes its own columns of it. The costs are all-reduced,
-  so every rank stops at the same iteration. The update is the exact one of
-  the one-device solve, up to summation order.
+  ``space``; each rank runs the per-tile work (warp, splat, edge loss and
+  Jacobian: kernel A, `kernels.comp_tile`, on the card) for its columns
+  only, the TV edges across a shard boundary read the right neighbour's
+  first column through `halo.exchange_halo`, and one `all_gather` ships the
+  compressed system pieces (per-tile 2x2 blocks and gradient terms,
+  per-owned-edge (w², d)). The first rank of the ``space`` group assembles
+  and factorises the 2T x 2T system (kernel B's solve entry,
+  `kernels.comp_step.solve`, on the card) and broadcasts the update; each
+  rank takes its own columns of it. The costs are all-reduced, so every
+  rank stops at the same iteration. The update is the exact one of the
+  one-device solve, up to summation order; on one ``space`` rank on the
+  card, bit for bit (the edges in the one-device order, the costs summed
+  in kernel B's).
 """
 
 from __future__ import annotations
@@ -71,16 +75,17 @@ def space_shard_tiles(mesh, tile_field):
 
 def _owned_edges(ty: int, tx: int, n_space: int):
     """Global (p, q) tile ids of every rank's owned TV edges, [n_space, E_l]
-    each, in the order each rank lists them: vertical (i, j)-(i+1, j), the
-    horizontal ones inside its columns, then its boundary edges to the right
+    each, in the order each rank lists them: the horizontal ones inside its
+    columns, vertical (i, j)-(i+1, j), then its boundary edges to the right
     neighbour's first column (clipped on the last rank, where they are
-    masked out)."""
+    masked out). On one rank that is `compensate._edges`'s order, then the
+    masked edges, so the root assembles the one-device solve's system."""
     txl, T = tx // n_space, ty * tx
     ps, qs = [], []
     for r in range(n_space):
         g = np.arange(ty)[:, None] * tx + r * txl + np.arange(txl)[None, :]
-        ps.append(np.concatenate([g[:-1].ravel(), g[:, :-1].ravel(), g[:, -1]]))
-        qs.append(np.concatenate([g[1:].ravel(), g[:, 1:].ravel(),
+        ps.append(np.concatenate([g[:, :-1].ravel(), g[:-1].ravel(), g[:, -1]]))
+        qs.append(np.concatenate([g[:, 1:].ravel(), g[1:].ravel(),
                                   np.minimum(g[:, -1] + 1, T - 1)]))
     return np.stack(ps), np.stack(qs)
 
@@ -99,6 +104,7 @@ def sharded_tile_solve_data(mesh, tile_data, *, ty: int, tx: int, tile: int,
     [T, 2] warm start, ignored when not finite. Returns (vel [T, 2], cost,
     cost0), replicated."""
     from evo_tpu_torch.dist.halo import exchange_halo
+    from evo_tpu_torch.kernels.comp_step import Edges
     from evo_tpu_torch.tracker.compensate import lm_motion_field, tile_system
 
     group = mesh.get_group(SPACE_AXIS)
@@ -117,8 +123,8 @@ def sharded_tile_solve_data(mesh, tile_data, *, ty: int, tx: int, tile: int,
     cols = block(mesh, SPACE_AXIS, tx)
     root = dist.get_global_rank(group, 0)
     if k == 0:
-        system = tile_system(1, T, *(torch.as_tensor(a, device=dev).reshape(-1)
-                                     for a in _owned_edges(ty, tx, n_space)))
+        ps, qs = (a.reshape(-1) for a in _owned_edges(ty, tx, n_space))
+        system = tile_system(1, Edges(ps, qs, T, dev))
 
     def edge_diffs(v):
         """Per-owned-edge velocity differences [1, E_l, 2], 0 on the masked
@@ -126,8 +132,8 @@ def sharded_tile_solve_data(mesh, tile_data, *, ty: int, tx: int, tile: int,
         neighbour comes from the halo exchange."""
         vg = v.reshape(ty, txl, 2)
         _, from_right = exchange_halo(mesh, vg, SPACE_AXIS, width=1, axis=1)
-        d = torch.cat([(vg[:-1] - vg[1:]).reshape(-1, 2),
-                       (vg[:, :-1] - vg[:, 1:]).reshape(-1, 2),
+        d = torch.cat([(vg[:, :-1] - vg[:, 1:]).reshape(-1, 2),
+                       (vg[:-1] - vg[1:]).reshape(-1, 2),
                        (vg[:, -1] - from_right[:, 0]).reshape(-1, 2)])
         return torch.where(edge_ok[:, None], d, torch.zeros_like(d))[None]
 
@@ -166,8 +172,10 @@ def sharded_tile_solve_data(mesh, tile_data, *, ty: int, tx: int, tile: int,
         vi = torch.as_tensor(v_init, dtype=torch.float32, device=dev).reshape(ty, tx, 2)
         ok = torch.isfinite(vi).all()
         v = v + torch.where(ok, vi[:, cols].reshape(1, tl, 2), torch.zeros_like(v))
-    v, cost, cost0 = lm_motion_field(
+    # on the card the loop sums the costs in kernel B's order: on one space
+    # rank the solve then gives the one-device solve's bits
+    st = lm_motion_field(
         v, ldata, tile=tile, scale=scale, tv_weight=tv_weight, tv_huber=tv_huber,
         max_iters=max_iters, loss=loss, edge_diffs=edge_diffs, solve=solve, reduce=reduce)
-    vel = grid_order(all_gather_cat(v, group))
-    return vel, cost[0], cost0[0]
+    vel = grid_order(all_gather_cat(st.v, group))
+    return vel, st.cost[0], st.cost0[0]

@@ -12,23 +12,34 @@ Counterpart of `evo_tpu/tracker/compensate.py`:
   Huber(10), w = 1e3;
 - the solved field warps every event into the count image (nearest splat).
 
-All tiles are one batch: warp and splat are one launch of the fused kernel
-(`kernels.splat.warp_splat`) over [T, E] events into [T, 60, 60] images, and
-its backward one launch that returns d/d velocity [T, 2]. Each tile residual
-depends only on its own velocity, so one reverse-mode pass over Σ_t r_t gives
-every row ∂r_t/∂v_t of the block-diagonal Jacobian (the JAX package uses
-jacfwd under vmap). The damped 2T x 2T normal system is solved by Cholesky.
-`solve_motion_field_batched` solves W windows at once (the splat over W·T
-rows, W systems in one batched Cholesky, each window frozen once it stops);
-the one-window solve is its case W = 1. With a mesh, `compensate_window`
-solves the tile columns space-sharded (`dist.tiling`) through the same LM
-loop (`lm_motion_field`) and system assembly (`tile_system`).
+The LM solves the per-tile velocities; each tile residual depends only on
+its own velocity, so the Jacobian is block-diagonal ([T, 2]) and the damped
+2T x 2T normal system is banded (the TV edges join tiles at most a grid row
+apart). `solve_motion_field_batched` solves W windows at once, each window
+frozen once it stops; the one-window solve is its case W = 1.
+
+- On the card the LM is a device-side loop (`lm_motion_field_on_card`): per
+  trip one launch of kernel A (`kernels.comp_tile`: warp, splat and loss of
+  every tile row with the Jacobian in forward mode, as the JAX package's
+  jacfwd) and one of kernel B (`kernels.comp_step`: the trip's accept and
+  the next trip's banded solve, a block a window); the host reads the stop
+  flag every `READS_EVERY` trips.
+- On the CPU the same loop runs from the host (`lm_motion_field`) on the
+  plain versions: `tile_residual_and_jacobian_ref` (the fused splat's plain
+  version and one reverse-mode pass over Σ_t r_t), `tile_system_ref` (one
+  batched Cholesky) and `lm_head` / `lm_tail`; `lm_step_ref` is kernel B's
+  loop entry in plain PyTorch.
+- With a mesh, `compensate_window` solves the tile columns space-sharded
+  (`dist.tiling`) through `lm_motion_field` with collective hooks; on the
+  card its residuals are kernel A's and its root's solve kernel B's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -36,6 +47,7 @@ import torch.nn.functional as F
 
 from evo_tpu_torch.core.device import resolve
 from evo_tpu_torch.core.transfer import HostCopy
+from evo_tpu_torch.kernels import comp_step, comp_tile
 from evo_tpu_torch.kernels.splat import splat_image, warp_splat
 from evo_tpu_torch.solve.lm import huber_weights
 
@@ -46,6 +58,9 @@ SIGMA_ST = 1.5
 K_ST = 3
 K_NMS = 2
 GAUSS_NORM = 1.0 / (2.0 * np.pi * SIGMA_SPLAT * SIGMA_SPLAT)
+# LM trips the host queues on the card between two reads of the stop flag
+# (a window takes ~14 trips: ~4 reads, at most 3 trips queued past the stop)
+READS_EVERY = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,12 +136,15 @@ def tile_variance_loss(img):
     return torch.where(mean > 0.0, var, zero)
 
 
-def tile_residual(vel, data: TileData, tile: int, scale: float,
-                  loss: str = "edge"):
-    """Contrast residual of every tile: vel [T, 2] -> r [T]."""
-    img = warp_splat(vel, data.ex, data.ey, data.dt_us, data.valid, data.tlx,
-                     data.tly, scale=scale, tile=tile, weight=GAUSS_NORM,
-                     sigma=SIGMA_SPLAT, radius=SPLAT_RADIUS)
+def tile_residual_ref(vel, data: TileData, tile: int, scale: float, loss: str = "edge",
+                      splat=warp_splat):
+    """Plain version: the contrast residual of every tile, vel [T, 2] -> r [T],
+    differentiable with respect to vel. `splat` is `kernels.splat.warp_splat`
+    (its plain version on the CPU, its kernels on the card) or
+    `warp_splat_ref`."""
+    img = splat(vel, data.ex, data.ey, data.dt_us, data.valid, data.tlx, data.tly,
+                scale=scale, tile=tile, weight=GAUSS_NORM, sigma=SIGMA_SPLAT,
+                radius=SPLAT_RADIUS)
     escaped = img.mean((1, 2)) <= 1e-4
     if loss == "edge":
         score = tile_edge_loss(img) / MAX_RES
@@ -139,14 +157,69 @@ def tile_residual(vel, data: TileData, tile: int, scale: float,
     return torch.where(data.active, r, torch.zeros_like(r))
 
 
-def tile_residual_and_jacobian(vel, data: TileData, tile: int, scale: float,
-                               loss: str = "edge"):
-    """(r [T], J [T, 2]) with J[t] = ∂r_t/∂v_t, from one backward pass."""
+def tile_residual_and_jacobian_ref(vel, data: TileData, tile: int, scale: float,
+                                   loss: str = "edge", splat=warp_splat):
+    """Plain version of kernel A (`kernels.comp_tile`): (r [T], J [T, 2]) with
+    J[t] = ∂r_t/∂v_t, from one backward pass of autograd (`splat` as for
+    `tile_residual_ref`)."""
     v = vel.detach().requires_grad_(True)
     with torch.enable_grad():
-        r = tile_residual(v, data, tile, scale, loss)
+        r = tile_residual_ref(v, data, tile, scale, loss, splat)
         (jac,) = torch.autograd.grad(r.sum(), v)
     return r.detach(), jac
+
+
+# Reads of the LM's stop flag by the host, since the last reset.
+host_reads = 0
+_count_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    global host_reads
+    with _count_lock:
+        host_reads = 0
+
+
+def _count_read() -> None:
+    global host_reads
+    with _count_lock:
+        host_reads += 1
+
+
+@functools.cache
+def blur_taps() -> tuple:
+    """The structure tensor's blur taps at distance 0..3: a row of
+    `_band_blur_matrix`, as the plain version builds it."""
+    return tuple(float(g) for g in _band_blur_matrix(2 * K_ST + 1, SIGMA_ST, K_ST, "cpu")
+                 [K_ST, K_ST:])
+
+
+def _tile_launch(vel, data: TileData, tile: int, scale: float, loss: str, r, J, **kw):
+    return comp_tile.TileLaunch(
+        vel, {f.name: getattr(data, f.name) for f in dataclasses.fields(data)}, tile=tile,
+        scale=scale, loss=loss, weight=GAUSS_NORM, sigma=SIGMA_SPLAT, radius=SPLAT_RADIUS,
+        blur=blur_taps(), r=r, J=J, **kw)
+
+
+def tile_residual_and_jacobian(vel, data: TileData, tile: int, scale: float,
+                               loss: str = "edge"):
+    """(r [T], J [T, 2]) with J[t] = ∂r_t/∂v_t: kernel A on the card, the
+    plain version (autograd) on the CPU."""
+    if vel.device.type == "cpu":
+        return tile_residual_and_jacobian_ref(vel, data, tile, scale, loss)
+    rows = vel.shape[0]
+    r = torch.empty(rows, dtype=torch.float32, device=vel.device)
+    J = torch.empty((rows, 2), dtype=torch.float32, device=vel.device)
+    _tile_launch(vel.contiguous(), data, tile, scale, loss, r, J).launch()
+    return r, J
+
+
+def tile_residual(vel, data: TileData, tile: int, scale: float, loss: str = "edge"):
+    """Contrast residual of every tile: vel [T, 2] -> r [T]; kernel A's r on
+    the card, the plain version on the CPU."""
+    if vel.device.type == "cpu":
+        return tile_residual_ref(vel, data, tile, scale, loss)
+    return tile_residual_and_jacobian(vel, data, tile, scale, loss)[0]
 
 
 def _edges(ty: int, tx: int):
@@ -157,22 +230,40 @@ def _edges(ty: int, tx: int):
     return np.concatenate([h, v], axis=0)
 
 
-def solve_motion_field(tile_data: TileData, edge_idx, *, tile: int,
+# The grids' edges, one `kernels.comp_step.Edges` per (ty, tx, device): every
+# window of a grid shares them, and the kernels' incidence of the edges is
+# built once. The compensation worker and the main thread both build tiles.
+_grids: dict = {}
+_grids_lock = threading.Lock()
+
+
+def grid_edges(ty: int, tx: int, device) -> comp_step.Edges:
+    """The TV edges of a ty x tx grid on `device` (horizontal, then
+    vertical neighbours, row-major)."""
+    key = (ty, tx, str(device))
+    with _grids_lock:
+        if key not in _grids:
+            e = _edges(ty, tx)
+            _grids[key] = comp_step.Edges(e[:, 0], e[:, 1], ty * tx, device)
+        return _grids[key]
+
+
+def solve_motion_field(tile_data: TileData, edges: comp_step.Edges, *, tile: int,
                        scale: float, tv_weight: float, tv_huber: float,
                        max_iters: int, loss: str = "edge", v_init=None):
     """Block-structured LM over per-tile velocities [T, 2]: the solve of
     `solve_motion_field_batched` for one window.
 
-    edge_idx [E, 2] long; v_init: optional [T, 2] warm start (the previous
-    window's field), ignored when not finite. Returns (v [T, 2], cost,
-    cost0) as tensors."""
+    edges: the grid's TV edges (`grid_edges`); v_init: optional [T, 2] warm
+    start (the previous window's field), ignored when not finite. Returns
+    (v [T, 2], cost, cost0) as tensors."""
     one = tile_data.map(lambda a: a[None])
     vi = None
     if v_init is not None:
         vi = torch.as_tensor(v_init, dtype=torch.float32,
                              device=tile_data.ex.device).reshape(1, -1, 2)
     v, cost, cost0 = solve_motion_field_batched(
-        one, edge_idx, tile=tile, scale=scale, tv_weight=tv_weight,
+        one, edges, tile=tile, scale=scale, tv_weight=tv_weight,
         tv_huber=tv_huber, max_iters=max_iters, loss=loss, v_init=vi)
     return v[0], cost[0], cost0[0]
 
@@ -185,16 +276,34 @@ def tv_rho(d, tv_weight: float, tv_huber: float):
     return torch.where(n <= tv_huber, s, 2.0 * tv_huber * n - tv_huber ** 2)
 
 
-def tile_system(nw: int, T: int, p, q):
-    """The damped solve of W block-structured 2T x 2T normal systems over the
-    TV edges (p, q) [E] long, with its scatter indices built once.
+def lane_sum(x):
+    """The sum over the last axis of x [..., N] in kernel B's order (a warp's
+    32 lanes each summing the entries l, l + 32, ... in turn, then a xor
+    butterfly over the lanes), so that a loop driven from the host sums a
+    window's cost as the device-side loop does."""
+    n = x.shape[-1]
+    x = F.pad(x, (0, (-n) % 32)).reshape(*x.shape[:-1], -1, 32)
+    acc = torch.zeros_like(x[..., 0, :])
+    for k in range(x.shape[-2]):
+        acc = acc + x[..., k, :]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0]
 
-    Returns solve(jj, jr, w2, d, lam) -> (delta [W, T, 2], ok [W]): from the per-tile
-    Gauss-Newton blocks jj [W, T, 2, 2] and gradients jr [W, T, 2], the
-    per-edge IRLS weights w2 [W, E] and differences d [W, E, 2], it assembles
-    A and b (GN of w|δ| is the weighted quadratic with Jᵀr = w²δ), damps the
-    diagonal by lam [W] and solves by one batched Cholesky; ok is False for
-    a window whose factorisation failed."""
+
+def tile_system_ref(nw: int, T: int, p, q):
+    """Plain version of kernel B's solve (`kernels.comp_step.solve`): the
+    damped solve of W block-structured 2T x 2T normal systems over the TV
+    edges (p, q) [E] long, with its scatter indices built once.
+
+    Returns solve(jj, jr, w2, d, lam) -> (delta [W, T, 2], ok [W]): from the
+    per-tile Gauss-Newton blocks jj [W, T, 2, 2] and gradients jr [W, T, 2],
+    the per-edge IRLS weights w2 [W, E] and differences d [W, E, 2], it
+    assembles A and b (GN of w|δ| is the weighted quadratic with Jᵀr = w²δ),
+    damps the diagonal by lam [W] and solves by one batched Cholesky; ok is
+    False for a window whose factorisation failed. `solve.assemble` gives
+    the damped A [W, 2T, 2T] and b [W, 2T] alone."""
     dev = p.device
     t2 = 2 * torch.arange(T, device=dev)
     blk_r = (t2[:, None, None] + torch.arange(2, device=dev)[None, :, None]).expand(T, 2, 2)
@@ -214,7 +323,7 @@ def tile_system(nw: int, T: int, p, q):
         win, torch.cat(tv_rows)[None], torch.cat(tv_cols)[None]))
     bi = tuple(a.reshape(-1) for a in torch.broadcast_tensors(win, torch.cat(b_rows)[None]))
 
-    def solve(jj, jr, w2, d, lam):
+    def assemble(jj, jr, w2, d, lam):
         A = torch.zeros((nw, 2 * T, 2 * T), dtype=jj.dtype, device=dev)
         A.index_put_(blk, jj.reshape(-1), accumulate=True)
         b = jr.reshape(nw, 2 * T).clone()
@@ -222,94 +331,232 @@ def tile_system(nw: int, T: int, p, q):
         b.index_put_(bi, torch.cat([s * w2 * d[..., c] for s, c in zip(b_sign, b_comp)],
                                    1).reshape(-1), accumulate=True)
         diag = torch.diagonal(A, dim1=-2, dim2=-1).clamp_min(1e-8)
-        L, info = torch.linalg.cholesky_ex(A + lam[:, None, None] * torch.diag_embed(diag))
+        return A + lam[:, None, None] * torch.diag_embed(diag), b
+
+    def solve(jj, jr, w2, d, lam):
+        A, b = assemble(jj, jr, w2, d, lam)
+        L, info = torch.linalg.cholesky_ex(A)
         delta = -torch.cholesky_solve(b[..., None], L)[..., 0]
         return delta.reshape(nw, T, 2), info == 0
+
+    solve.assemble = assemble
+    return solve
+
+
+def tile_system(nw: int, edges: comp_step.Edges):
+    """`tile_system_ref`'s solve over `edges` on the CPU; on the card, kernel
+    B's solve entry (`kernels.comp_step.solve`)."""
+    if edges.p.device.type == "cpu":
+        return tile_system_ref(nw, edges.t, edges.p, edges.q)
+
+    def solve(jj, jr, w2, d, lam):
+        return comp_step.solve(jj.contiguous(), jr.contiguous(), w2.contiguous(),
+                               d.contiguous(), lam.contiguous(), edges)
 
     return solve
 
 
+@dataclasses.dataclass
+class LmState:
+    """The plain LM's state of W windows: the accepted velocities v [W, T,
+    2] with their residuals r [W, T], Jacobians J [W, T, 2] and TV edge
+    differences d [W, E, 2]; damping, cost, cost0 [W]; active [W] bool;
+    iters [W] (trips run while active); and the candidate v_new [W, T, 2]
+    with bad [W] (its step failed)."""
+
+    v: torch.Tensor
+    r: torch.Tensor
+    J: torch.Tensor
+    d: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+    cost0: torch.Tensor
+    active: torch.Tensor
+    iters: torch.Tensor
+    v_new: torch.Tensor | None = None
+    bad: torch.Tensor | None = None
+
+
+def lm_head(st: LmState, solve, tv_weight: float, tv_huber: float) -> None:
+    """The head of an LM trip: the IRLS weights of the TV edges, the damped
+    solve at v, and the candidate v_new (v where the step failed: not ok or
+    not finite)."""
+    w2 = huber_weights(((tv_weight * st.d.abs()) ** 2).sum(-1), tv_huber) \
+        * tv_weight * tv_weight
+    J, r = st.J, st.r
+    delta, ok = solve(J[..., :, None] * J[..., None, :], J * r[..., None], w2, st.d, st.lam)
+    bad = ~ok | ~torch.isfinite(delta).all(-1).all(-1)
+    delta = torch.where(bad[:, None, None], torch.zeros_like(delta), delta)
+    st.v_new, st.bad = st.v + delta, bad
+
+
+def lm_tail(st: LmState, r_new, J_new, d_new, cost_new) -> None:
+    """The tail of an LM trip: accept the candidate where its cost is finite
+    and lower and its step did not fail; halve or quadruple the damping
+    (within [1e-9, 1e6]); a window stops on a relative decrease below 1e-6 or
+    a damping past 1e5, and from then on keeps its state."""
+    active = st.active
+    accept = active & torch.isfinite(cost_new) & (cost_new < st.cost) & ~st.bad
+    rel = (st.cost - cost_new) / st.cost.clamp_min(1e-12)
+    done = (accept & (rel < 1e-6)) | (st.lam > 1e5)
+    st.v = torch.where(accept[:, None, None], st.v_new, st.v)
+    st.r = torch.where(accept[:, None], r_new, st.r)
+    st.J = torch.where(accept[:, None, None], J_new, st.J)
+    st.d = torch.where(accept[:, None, None], d_new, st.d)
+    st.lam = torch.where(active, torch.where(accept, st.lam * 0.5, st.lam * 4.0)
+                         .clamp(1e-9, 1e6), st.lam)
+    st.cost = torch.where(accept, cost_new, st.cost)
+    st.iters = st.iters + active.to(st.iters.dtype)
+    st.active = active & ~done
+
+
 def lm_motion_field(v, data: TileData, *, tile: int, scale: float, tv_weight: float,
                     tv_huber: float, max_iters: int, loss: str, edge_diffs, solve,
-                    reduce=None):
+                    reduce=None) -> LmState:
     """The LM loop of W windows' tile velocities v [W, T, 2] from their start,
-    T the tiles this caller holds (`data` [W·T, E] rows).
+    T the tiles this caller holds (`data` [W·T, E] rows), driven from the
+    host: the CPU's loop, and the space-sharded solve's on any device.
 
     Hooks, so that the one-device and the space-sharded solves
     (`dist.tiling.sharded_tile_solve_data`) share it: edge_diffs(v) -> the
     differences [W, E, 2] of the TV edges this caller owns; solve(jj, jr, w2,
     d, lam) -> (delta [W, T, 2], ok [W]) from this caller's normal-equation
-    pieces (`tile_system`; a step that is not ok or not finite is
-    rejected); reduce(c) ->
-    the cost [W] of the whole field from this caller's part (None: it is the
-    whole). A window stops after `max_iters`, on a relative cost decrease
-    below 1e-6, or once its damping passes 1e5; from then on it keeps its
-    velocities, damping and cost while the others go on, so each window sees
-    the accepts it would see alone. One host read per iteration (any window
-    still active?). Returns (v, cost [W], cost0 [W])."""
-    nw, T = v.shape[:2]
+    pieces (`tile_system`); reduce(c) -> the cost [W] of the whole field from
+    this caller's part (None: it is the whole). On the card a window's cost
+    is summed in kernel B's order (`lane_sum`). A window stops after
+    `max_iters`, on a relative cost decrease below 1e-6, or once its damping
+    passes 1e5; from then on it keeps its velocities, damping and cost while
+    the others go on, so each window sees the accepts it would see alone.
 
-    def total_cost(v):
-        r = tile_residual(v.reshape(nw * T, 2), data, tile, scale, loss).reshape(nw, T)
-        c = (r * r).sum(-1) + tv_rho(edge_diffs(v), tv_weight, tv_huber).sum(-1)
+    Each trip evaluates the residuals and Jacobians once, at the candidate
+    (`lm_tail` keeps them when it accepts), and the host reads the stop flag
+    once every `READS_EVERY` trips: trips queued past a window's stop leave
+    it as it is. Returns the final `LmState` (v, cost, cost0, iters)."""
+    nw, T = v.shape[:2]
+    lanes = v.device.type == "cuda"
+
+    def residuals(v):
+        r, J = tile_residual_and_jacobian(v.reshape(nw * T, 2), data, tile, scale, loss)
+        return r.reshape(nw, T), J.reshape(nw, T, 2)
+
+    def cost_of(r, d):
+        if lanes:
+            c = lane_sum(r * r) + lane_sum(tv_rho(d, tv_weight, tv_huber))
+        else:
+            c = (r * r).sum(-1) + tv_rho(d, tv_weight, tv_huber).sum(-1)
         return c if reduce is None else reduce(c)
 
     with torch.no_grad():
-        cost = total_cost(v)
-        cost0 = cost
-        lam = torch.full((nw,), 1e-4, dtype=torch.float32, device=v.device)
-        active = torch.ones(nw, dtype=torch.bool, device=v.device)
-        for _ in range(max_iters):
-            r, J = tile_residual_and_jacobian(v.reshape(nw * T, 2), data, tile, scale, loss)
-            r, J = r.reshape(nw, T), J.reshape(nw, T, 2)
-            # TV blocks: IRLS Huber weight per edge
-            d = edge_diffs(v)
-            w2 = huber_weights(((tv_weight * d.abs()) ** 2).sum(-1), tv_huber) \
-                * tv_weight * tv_weight
-            delta, ok = solve(J[..., :, None] * J[..., None, :], J * r[..., None], w2, d, lam)
-            bad = ~ok | ~torch.isfinite(delta).all(-1).all(-1)
-            delta = torch.where(bad[:, None, None], torch.zeros_like(delta), delta)
-            v_new = v + delta
-            cost_new = total_cost(v_new)
-            accept = active & torch.isfinite(cost_new) & (cost_new < cost) & ~bad
-            rel = (cost - cost_new) / cost.clamp_min(1e-12)
-            done = (accept & (rel < 1e-6)) | (lam > 1e5)
-            v = torch.where(accept[:, None, None], v_new, v)
-            lam = torch.where(active, torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-9, 1e6),
-                              lam)
-            cost = torch.where(accept, cost_new, cost)
-            active = active & ~done
-            if not bool(active.any()):
-                break
-    return v, cost, cost0
+        r, J = residuals(v)
+        d = edge_diffs(v)
+        cost = cost_of(r, d)
+        st = LmState(v=v, r=r, J=J, d=d, cost=cost, cost0=cost,
+                     lam=torch.full((nw,), 1e-4, dtype=torch.float32, device=v.device),
+                     active=torch.ones(nw, dtype=torch.bool, device=v.device),
+                     iters=torch.zeros(nw, dtype=torch.int32, device=v.device))
+        for k in range(max_iters):
+            lm_head(st, solve, tv_weight, tv_huber)
+            r_new, J_new = residuals(st.v_new)
+            d_new = edge_diffs(st.v_new)
+            lm_tail(st, r_new, J_new, d_new, cost_of(r_new, d_new))
+            if k + 1 < max_iters and (k + 1) % READS_EVERY == 0:
+                _count_read()
+                if not bool(st.active.any()):
+                    break
+    return st
 
 
-def solve_motion_field_batched(tile_data: TileData, edge_idx, *, tile: int,
+def lm_step_ref(st: LmState, mode: int, p, q, *, r_new=None, J_new=None,
+                tv_weight: float, tv_huber: float) -> None:
+    """Plain version of one launch of kernel B's loop entry
+    (`kernels.comp_step.LmLoop.step`) on the unmeshed state `st`: mode
+    `INIT` (st.cost, cost0 from st.r and st.v, st.d set), or `TAIL` with the
+    residuals r_new, J_new at st.v_new; `| HEAD` then makes the next
+    candidate. Windows that have stopped keep their state."""
+    from evo_tpu_torch.kernels.comp_step import HEAD, INIT, TAIL
+
+    nw, T = st.v.shape[:2]
+    if mode & INIT:
+        st.d = st.v[:, p] - st.v[:, q]
+        st.cost = st.cost0 = (st.r * st.r).sum(-1) + tv_rho(st.d, tv_weight, tv_huber).sum(-1)
+    if mode & TAIL:
+        d_new = st.v_new[:, p] - st.v_new[:, q]
+        cost_new = (r_new * r_new).sum(-1) + tv_rho(d_new, tv_weight, tv_huber).sum(-1)
+        lm_tail(st, r_new, J_new, d_new, cost_new)
+    if mode & HEAD:
+        v_new, bad = st.v_new, st.bad
+        lm_head(st, tile_system_ref(nw, T, p, q), tv_weight, tv_huber)
+        if v_new is not None:  # a window that has stopped keeps its candidate
+            keep = ~st.active
+            st.v_new = torch.where(keep[:, None, None], v_new, st.v_new)
+            st.bad = torch.where(keep, bad, st.bad)
+
+
+def lm_motion_field_on_card(v, data: TileData, edges: comp_step.Edges, *, tile: int,
+                            scale: float, tv_weight: float, tv_huber: float,
+                            max_iters: int, loss: str):
+    """The LM loop of W windows on the card as a device-side loop: per trip
+    two launches, kernel B's step (the tail of the last trip and the head of
+    this one) and kernel A at the candidate (only the windows still
+    iterating); the state stays in `kernels.comp_step.LmLoop`'s arena. The
+    host queues `READS_EVERY` trips between two reads of the stop flag; a
+    window that has stopped ignores the trips queued past it, so the result
+    is that of a read after every trip. Same arguments as `lm_motion_field`,
+    with the grid's edges in place of the hooks; returns the `LmLoop` (v,
+    cost, cost0, iters)."""
+    from evo_tpu_torch.kernels.comp_step import HEAD, INIT, TAIL, LmLoop
+
+    nw, T = v.shape[:2]
+    loop = LmLoop(nw, edges, tv_weight, tv_huber)
+    loop.v.copy_(v)
+    at_v = _tile_launch(loop.v.view(nw * T, 2), data, tile, scale, loss,
+                        loop.r.view(-1), loop.J.view(-1, 2)).launch
+    at_new = _tile_launch(loop.v_new.view(nw * T, 2), data, tile, scale, loss,
+                          loop.r_new.view(-1), loop.J_new.view(-1, 2), live=loop.active,
+                          rows_per_window=T).launch
+    with torch.no_grad():
+        at_v()
+        loop.step(INIT | (HEAD if max_iters > 0 else 0))
+        for k in range(max_iters):
+            at_new()
+            loop.step(TAIL | (HEAD if k + 1 < max_iters else 0))
+            if k + 1 < max_iters and (k + 1) % READS_EVERY == 0:
+                _count_read()
+                if not bool(loop.active.any()):
+                    break
+    return loop
+
+
+def solve_motion_field_batched(tile_data: TileData, edges: comp_step.Edges, *, tile: int,
                                scale: float, tv_weight: float, tv_huber: float,
                                max_iters: int, loss: str = "edge", v_init=None):
-    """The LM of W independent windows at once (`lm_motion_field`), the
-    counterpart of `jax.vmap(solve_motion_field)` (`evo_tpu/dist/temporal.py`).
+    """The LM of W independent windows at once, the counterpart of
+    `jax.vmap(solve_motion_field)` (`evo_tpu/dist/temporal.py`).
 
     tile_data: fields with a leading window axis, ex, ey, dt_us, valid
-    [W, T, E] and tlx, tly, active [W, T]; edge_idx [E, 2] long; v_init:
-    optional [W, T, 2] warm start, a window's ignored when not finite (None:
-    cold). Every iteration splats the W·T tiles in one launch of the fused
-    kernel (and one of its backward) and factors the W damped systems in one
-    batched Cholesky. Returns (v [W, T, 2], cost [W], cost0 [W])."""
+    [W, T, E] and tlx, tly, active [W, T]; edges: the grid's (`grid_edges`);
+    v_init: optional [W, T, 2] warm start, a window's ignored when not finite
+    (None: cold). On the card, the device-side loop `lm_motion_field_on_card`
+    (kernels A and B, two launches a trip over all W windows); on the CPU,
+    `lm_motion_field` with the plain versions. Returns (v [W, T, 2], cost
+    [W], cost0 [W])."""
     dev = tile_data.ex.device
     nw, T = tile_data.ex.shape[:2]
-    # the W·T tiles as one batch of rows for the splat
+    # the W·T tiles as one batch of rows
     flat = tile_data.map(lambda a: a.reshape((nw * T,) + a.shape[2:]))
-    p, q = edge_idx[:, 0], edge_idx[:, 1]
     v = torch.zeros((nw, T, 2), dtype=torch.float32, device=dev)
     if v_init is not None:
         vi = torch.as_tensor(v_init, dtype=torch.float32, device=dev).reshape(nw, T, 2)
         finite = torch.isfinite(vi).all(-1).all(-1)
         v = v + torch.where(finite[:, None, None], vi, torch.zeros_like(vi))
-    return lm_motion_field(v, flat, tile=tile, scale=scale, tv_weight=tv_weight,
-                           tv_huber=tv_huber, max_iters=max_iters, loss=loss,
-                           edge_diffs=lambda v: v[:, p] - v[:, q],
-                           solve=tile_system(nw, T, p, q))
+    kw = dict(tile=tile, scale=scale, tv_weight=tv_weight, tv_huber=tv_huber,
+              max_iters=max_iters, loss=loss)
+    if dev.type == "cuda":
+        st = lm_motion_field_on_card(v, flat, edges, **kw)
+    else:
+        st = lm_motion_field(v, flat, edge_diffs=lambda v: v[:, edges.p] - v[:, edges.q],
+                             solve=tile_system(nw, edges), **kw)
+    return st.v, st.cost, st.cost0
 
 
 def build_tile_data(x: np.ndarray, y: np.ndarray, t_us: np.ndarray,
@@ -319,8 +566,9 @@ def build_tile_data(x: np.ndarray, y: np.ndarray, t_us: np.ndarray,
     per-tile capacity the smallest power of two >= 256 that holds the
     fullest tile, capped at `events_per_tile_cap`.
 
-    Returns (TileData on `device` (None: the card when there is one),
-    edge_idx [E, 2] long, ty, tx, tile id of each event [N] (numpy), t_mid)."""
+    Returns (TileData on `device` (None: the card when there is one), the
+    grid's edges (`grid_edges`), ty, tx, tile id of each event [N] (numpy),
+    t_mid)."""
     p = params or CompensateParams()
     device = resolve(device)
     tx_n = width // p.tile
@@ -357,8 +605,7 @@ def build_tile_data(x: np.ndarray, y: np.ndarray, t_us: np.ndarray,
         tly=dev((np.arange(T) // tx_n * p.tile).astype(np.float32)),
         active=dev(counts > p.min_events),
     )
-    edge_idx = dev(_edges(ty_n, tx_n))
-    return data, edge_idx, ty_n, tx_n, tid, t_mid
+    return data, grid_edges(ty_n, tx_n, device), ty_n, tx_n, tid, t_mid
 
 
 def compensate_window(x: np.ndarray, y: np.ndarray, t_us: np.ndarray,
@@ -377,7 +624,7 @@ def compensate_window(x: np.ndarray, y: np.ndarray, t_us: np.ndarray,
     with the one-device result up to summation order."""
     p = params or CompensateParams()
     device = resolve(device)
-    data, edge_idx, ty_n, tx_n, tid, t_mid = build_tile_data(
+    data, edges, ty_n, tx_n, tid, t_mid = build_tile_data(
         x, y, t_us, p, height, width, device
     )
     kw = dict(tile=p.tile, scale=p.scale, tv_weight=p.tv_weight, tv_huber=p.tv_huber,
@@ -387,7 +634,7 @@ def compensate_window(x: np.ndarray, y: np.ndarray, t_us: np.ndarray,
 
         vel, cost, cost0 = sharded_tile_solve_data(mesh, data, ty=ty_n, tx=tx_n, **kw)
     else:
-        vel, cost, cost0 = solve_motion_field(data, edge_idx, **kw)
+        vel, cost, cost0 = solve_motion_field(data, edges, **kw)
     img = compensated_count_splat(
         vel, torch.as_tensor(tid).to(device),
         torch.as_tensor(x.astype(np.float32)).to(device),

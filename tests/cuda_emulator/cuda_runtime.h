@@ -1,13 +1,17 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile a CUDA source of
 // the package and run its kernels on the CPU, for tests without a card
-// (`tests/test_torch_align_emulated.py`). It is not a CUDA implementation:
-// it covers what `evo_tpu_torch/csrc/align_step.cu` uses, and no more.
+// (`tests/test_torch_align_emulated.py`, `tests/test_torch_comp_emulated.py`).
+// It is not a CUDA implementation: it covers what `evo_tpu_torch/csrc/`'s
+// `align_step.cu`, `comp_tile.cu` and `comp_step.cu` use, and no more.
 //
 // A launch runs the grid's blocks one after another; each block runs as
 // one std::thread for each thread of the block. `__shared__` variables are function statics, so
 // the threads of the running block share them. `__syncthreads` is a
 // std::barrier over the block; the warp shuffles exchange values through an
-// array between two barriers of the warp; `atomicAdd` takes a mutex.
+// array between two barriers of the warp, and `__syncwarp` is one such
+// barrier; `atomicAdd` takes a mutex. A launch's dynamic shared memory is a
+// buffer of the block, which `evo_emu::dynamic_smem()` returns (the tests
+// rewrite `extern __shared__ __align__(16) float name[];` into a call of it).
 // Compile with `g++ -std=c++20 -ffp-contract=off` so that each product and
 // sum rounds on its own, as the kernels' `-fmad=false` build does; an
 // explicit fmaf() is one rounding on both.
@@ -31,9 +35,11 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) alignas(n)
 
 struct float2 {
   float x, y;
@@ -47,7 +53,8 @@ struct dim3 {
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 namespace evo_emu {
 
@@ -63,6 +70,7 @@ struct Block {
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<unsigned long long> exchange;  // one 8-byte slot a thread
   std::mutex atomic;
+  std::vector<float> dynamic;  // the launch's dynamic shared memory
 };
 
 inline Block* block = nullptr;  // the running block
@@ -83,9 +91,10 @@ T shuffle(T v, int src_lane) {
 }
 
 template <class F>
-void launch(dim3 grid, dim3 threads, size_t, cudaStream_t, F&& body) {
+void launch(dim3 grid, dim3 threads, size_t smem, cudaStream_t, F&& body) {
   for (unsigned b = 0; b < grid.x; ++b) {
     Block blk((int)threads.x);
+    blk.dynamic.assign((smem + sizeof(float) - 1) / sizeof(float), 0.0f);
     block = &blk;
     std::vector<std::thread> pool;
     pool.reserve(threads.x);
@@ -100,12 +109,17 @@ void launch(dim3 grid, dim3 threads, size_t, cudaStream_t, F&& body) {
   }
 }
 
+inline float* dynamic_smem() { return block->dynamic.data(); }
+
 }  // namespace evo_emu
 
 #define threadIdx evo_emu::thread_idx
 #define blockIdx evo_emu::block_idx
 
 inline void __syncthreads() { evo_emu::block->sync.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  evo_emu::block->warps[(int)evo_emu::thread_idx.x >> 5]->arrive_and_wait();
+}
 
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int mask) {
@@ -141,4 +155,10 @@ inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+template <class Kernel>
+cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
 

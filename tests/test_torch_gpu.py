@@ -9,7 +9,9 @@ Tolerances: nearest splat counts exact; Gaussian and bilinear values and
 gradients rtol/atol 1e-5 (atomics sum in another order); the fused entry's
 d/d vel rtol 1e-5 with atol 1e-5 of its largest entry (a sum over the tile's
 events that cancels); compensation field within 1e-4 px/ms between the card
-and the CPU, one window or three solved together; VO keyframe poses within
+and the CPU, one window or three solved together, and eight windows solved
+together bit for bit as each alone; compensation's kernels to the bars of
+`evo_tpu_torch/run/time_comp.py`; VO keyframe poses within
 1e-3 between the card and the CPU on the same RANSAC draws, keyframe by
 keyframe from one state (the card's scatter-adds and SVDs sum in another
 order), and within 1e-3 of the trajectory's extent over a free run."""
@@ -20,7 +22,7 @@ import torch
 
 from evo_tpu_torch.core import camera, lie
 from evo_tpu_torch.core.types import CalibParams
-from evo_tpu_torch.kernels import splat
+from evo_tpu_torch.kernels import comp_step, comp_tile, splat
 from evo_tpu_torch.tracker import compensate
 from evo_tpu_torch.vo import frontend
 from evo_tpu_torch.vo.keyframe import Keyframe
@@ -170,10 +172,12 @@ def test_compensation_on_card_matches_cpu(cuda_device):
                 + rng.normal(0, 0.3, n), 0, w - 1)
     y = rng.uniform(0, h - 1, n)
     p = compensate.CompensateParams(max_iters=25, events_per_tile_cap=512)
-    n_fwd, n_warp = splat.launches_fwd, splat.launches_warp_bwd
+    n_fwd, n_tile, n_step = (splat.launches_fwd, comp_tile.launches_comp_tile,
+                             comp_step.launches_step)
     # no device given: the entry point itself picks the card
     f_gpu, img_gpu, c_gpu, _ = compensate.compensate_window(x, y, t_us, p, h, w)
-    assert splat.launches_fwd > n_fwd and splat.launches_warp_bwd > n_warp
+    assert splat.launches_fwd > n_fwd and comp_tile.launches_comp_tile > n_tile \
+        and comp_step.launches_step > n_step
     f_cpu, img_cpu, c_cpu, _ = compensate.compensate_window(x, y, t_us, p, h, w,
                                                             device="cpu")
     np.testing.assert_allclose(f_gpu, f_cpu, atol=1e-4)
@@ -186,7 +190,7 @@ def test_batched_compensation_on_card_matches_cpu(cuda_device):
     """Three windows solved together (`dist.temporal`) on the card, no device
     given, against the same call on the CPU: each window as the one-window
     solve is held (field 1e-4 px/ms, cost 1e-5 relative, count image of the
-    same mass); the W·T tiles go through the fused kernels."""
+    same mass); the W·T tiles go through kernels A and B."""
     from evo_tpu_torch.dist import temporal
 
     rng = np.random.default_rng(7)
@@ -198,14 +202,85 @@ def test_batched_compensation_on_card_matches_cpu(cuda_device):
                     + rng.normal(0, 0.3, n), 0, w - 1)
         windows.append((x, rng.uniform(0, h - 1, n), t_us))
     p = compensate.CompensateParams(max_iters=25, events_per_tile_cap=512)
-    n_fwd, n_bwd = splat.launches_warp_fwd, splat.launches_warp_bwd
+    n_tile, n_step = comp_tile.launches_comp_tile, comp_step.launches_step
     gpu = temporal.compensate_windows_batched(windows, p, h, w)
-    assert splat.launches_warp_fwd > n_fwd and splat.launches_warp_bwd > n_bwd
+    assert comp_tile.launches_comp_tile > n_tile and comp_step.launches_step > n_step
     cpu = temporal.compensate_windows_batched(windows, p, h, w, device="cpu")
     for (f_gpu, img_gpu, c_gpu, _), (f_cpu, img_cpu, c_cpu, _) in zip(gpu, cpu):
         np.testing.assert_allclose(f_gpu, f_cpu, atol=1e-4)
         assert c_gpu == pytest.approx(c_cpu, rel=1e-5)
         assert img_gpu.sum() == img_cpu.sum() and np.mean(img_gpu == img_cpu) >= 0.995
+
+
+def _line_windows(k, n=4000, h=60, w=80):
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(k):
+        t_us = np.sort(rng.uniform(0, 100_000, n)).astype(np.int64) + 100_000 * i
+        x = np.clip(rng.choice(np.arange(5, w - 5, 10), n) + (30 + 5 * i) * (t_us % 100_000)
+                    * 1e-6 + rng.normal(0, 0.3, n), 0, w - 1)
+        out.append((x, rng.uniform(0, h - 1, n), t_us))
+    return out
+
+
+@pytest.mark.gpu
+def test_batched_windows_on_card_equal_their_one_window_solves(cuda_device):
+    """Eight windows solved together on the card give each window's field
+    and costs of its solve alone, bit for bit: kernel A runs a block a tile
+    row, kernel B one a window, and padding events change nothing."""
+    from evo_tpu_torch.dist import temporal
+
+    windows = _line_windows(8)
+    p = compensate.CompensateParams(max_iters=25, events_per_tile_cap=512)
+    batched = temporal.compensate_windows_batched(windows, p, 60, 80)
+    for win, (f8, _, c8, c08) in zip(windows, batched):
+        f1, _, c1, c01 = compensate.compensate_window(*win, p, 60, 80)
+        assert np.array_equal(f1, f8) and c1 == c8 and c01 == c08
+
+
+class _Once:
+    """A timer that runs each function once and times nothing."""
+
+    @staticmethod
+    def device_ms(fn, reps):
+        fn()
+        return 0.0
+
+    host_us = device_ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["edge", "variance"])
+def test_comp_tile_matches_plain_on_card(cuda_device, loss):
+    """Kernel A at [216, 256] against autograd through the plain splat (the
+    bars of `run/time_comp.py`: the score and r 1e-4 relative, J 1e-3,
+    escaped equal)."""
+    from evo_tpu_torch.run.time_comp import check_comp_tile
+
+    row = check_comp_tile(_Once(), cuda_device, 2, 256, loss, reps=1)
+    assert row["r_rel_err"] <= 1e-4 and row["max_abs_err"] <= 1e-3
+    assert row["score_rel_err"] <= 1e-4
+
+
+@pytest.mark.gpu
+def test_comp_tile_matches_plain_at_40_px_tiles_on_card(cuda_device):
+    """Kernel A on the 24 tiles of 40 px (120x120 padded images, the loss in
+    strips of pool rows) at E = 1024, under the same bars."""
+    from evo_tpu_torch.run.time_comp import check_comp_tile
+
+    row = check_comp_tile(_Once(), cuda_device, 1, 1024, "edge", reps=1, tile=40)
+    assert row["score_rel_err"] <= 1e-4 and row["max_abs_err"] <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nw, tile", [(1, 20), (3, 20), (1, 40)])
+def test_comp_step_matches_plain_on_card(cuda_device, nw, tile):
+    """Kernel B's solve and loop entries against their plain versions (the
+    bars of `run/time_comp.py`)."""
+    from evo_tpu_torch.run.time_comp import check_comp_step
+
+    row = check_comp_step(_Once(), cuda_device, nw, tile, reps=1)
+    assert row["errors"]["tail"]["active_equal"]
 
 
 def _vo_keyframes(n=12, n_pts=120, noise_px=0.3):
@@ -306,8 +381,8 @@ def test_pipelined_on_card_matches_sync_on_card(cuda_device, tmp_path, monkeypat
     card, no device given: the same tracks and timestamps, positions within
     1e-3 px, the last motion field within 1e-4 px/ms (same device and the
     same order of work on each stream, so they should be equal); the splat
-    kernels are launched from the evo-comp thread
-    (their backwards by autograd's thread) on one stream of the worker's own."""
+    kernels and compensation's are launched from the evo-comp thread on one
+    stream of the worker's own."""
     import threading
 
     from evo_tpu_torch.io import sim
@@ -315,15 +390,18 @@ def test_pipelined_on_card_matches_sync_on_card(cuda_device, tmp_path, monkeypat
 
     ds = sim.to_dataset(sim.EventCameraSimulator(
         sim.SimParams(duration_s=0.5, fps=20.0, seed=2)).generate())
+    from evo_tpu_torch.kernels import nvcc
+
     launched = []
-    inner = splat._launch
+    inner = nvcc.launch
 
-    def recording(name, on, *args):
-        launched.append((name, threading.current_thread().name,
-                         torch.cuda.current_stream(on.device).cuda_stream))
-        return inner(name, on, *args)
+    def recording(fn, on, *args):
+        if fn.__name__.startswith(("evo_comp", "evo_splat", "evo_warp")):
+            launched.append((fn.__name__, threading.current_thread().name,
+                             torch.cuda.current_stream(on.device).cuda_stream))
+        return inner(fn, on, *args)
 
-    monkeypatch.setattr(splat, "_launch", recording)
+    monkeypatch.setattr(nvcc, "launch", recording)
     runs = {}
     for name, pipelined in (("sync", False), ("pipe", True)):
         launched.clear()
@@ -332,19 +410,18 @@ def test_pipelined_on_card_matches_sync_on_card(cuda_device, tmp_path, monkeypat
             output_dir=str(tmp_path / name), pipelined=pipelined,
             compensate=compensate.CompensateParams(max_iters=5)))
         assert ev.device.type == "cuda"
-        n_warp = splat.launches_warp_fwd
+        n_tile = comp_tile.launches_comp_tile
         ev.run()
         rows = np.loadtxt(ev.finish()["vo_trajectory"], ndmin=2)
-        assert splat.launches_warp_fwd > n_warp
+        assert comp_tile.launches_comp_tile > n_tile
         runs[name] = (ev, rows, list(launched))
     (s_ev, s_rows, s_l), (p_ev, p_rows, p_l) = runs["sync"], runs["pipe"]
     default = torch.cuda.default_stream(cuda_device).cuda_stream
-    # a backward is launched by autograd's own thread, on its forward's stream
     assert {st for _, _, st in s_l} == {default}
-    assert {t for n, t, _ in s_l if "bwd" not in n} == {"MainThread"}
+    assert {t for _, t, _ in s_l} == {"MainThread"}
     assert len({st for _, _, st in p_l}) == 1 and p_l[0][2] != default
-    assert all(t.startswith("evo-comp") for n, t, _ in p_l if "bwd" not in n)
-    assert any("warp_splat_bwd" in n for n, _, _ in p_l)
+    assert all(t.startswith("evo-comp") for _, t, _ in p_l)
+    assert any(n == "evo_comp_lm_step" for n, _, _ in p_l)
     assert len(p_l) == len(s_l)
     assert set(p_ev.tracker.trajectories) == set(s_ev.tracker.trajectories)
     for tid, entries in s_ev.tracker.trajectories.items():
@@ -467,9 +544,9 @@ def test_resume_on_card_matches_uninterrupted_on_card(cuda_device, tmp_path):
     resumed = checkpoint.load_checkpoint(
         checkpoint.save_checkpoint(str(tmp_path / "ckpt"), first), ds, params("resumed"))
     assert resumed.device.type == "cuda" and resumed.tracker.table.alive.is_cuda
-    n_warp = splat.launches_warp_fwd
+    n_tile = comp_tile.launches_comp_tile
     resumed.run(start_frame=resumed.image_num)
-    assert splat.launches_warp_fwd > n_warp
+    assert comp_tile.launches_comp_tile > n_tile
     assert set(resumed.tracker.trajectories) == set(full.tracker.trajectories)
     for tid, entries in full.tracker.trajectories.items():
         a, b = np.asarray(entries), np.asarray(resumed.tracker.trajectories[tid])
@@ -540,10 +617,10 @@ def test_meshed_evaluator_on_card_matches_unmeshed(cuda_device, tmp_path):
                     output_dir=str(out), pipelined=pipelined, mesh=grid,
                     compensate=compensate.CompensateParams(max_iters=5)))
                 splat.reset_counts()
+                comp_tile.reset_counts()
                 ev.run()
                 ev.finish()
-                runs.append((ev, (splat.launches_fwd, splat.launches_warp_fwd,
-                                  splat.launches_warp_bwd)))
+                runs.append((ev, (splat.launches_fwd, comp_tile.launches_comp_tile)))
             (a, la), (b, lb) = runs
             assert b.tracker.mesh is m and b.tracker.table.alive.is_cuda
             assert la == lb and la[1] > 0
