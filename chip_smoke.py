@@ -7,8 +7,9 @@ Phases (any failure raises and exits non-zero):
    and the card's name and power limit;
 2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc
    (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu), one nvcc for each
-   source (and one for the alignment kernel's clock build), all started
-   together, and prints ptxas's register, spill and shared-memory lines;
+   source (and one for each clock build: the alignment kernel's and
+   compensation's two), all started together, and prints ptxas's register,
+   spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
    re-budget) against its plain version `align.solve_step_ref` on the
@@ -29,12 +30,17 @@ Phases (any failure raises and exits non-zero):
    maxRes - score holds it to 6e-5 alone) within 1e-4 relative of the plain
    score, printed beside the smallest plain score, r within 1e-4 relative
    where no loss is taken, J within 1e-3, `escaped` equal; kernel B
-   (`comp_step`, a warp a window) at 108 tiles with W = 1 and 8 and at the 40
-   px grid's 24: its solve entry against `tile_system_ref` and its loop entry
-   (INIT | HEAD, then TAIL | HEAD) against `lm_step_ref` on a copy of its
-   state: decisions equal, costs 1e-5 relative, steps held to a float64
-   solve (1e-4 of the step, or twice the plain version's own error); the
-   library yardstick `cholesky_ex` + `cholesky_solve` timed beside. Then the
+   (`comp_step`, a warp a window's pivots) at 108 tiles with W = 1 and 8, at
+   the 40 px grid's 24 and at the 15 px grid's 192 (band 32: the block-wide
+   factorisation that phase 12 (c) runs): its solve entry against `tile_system_ref` (ok
+   equal, backward error 1e-6, its forward error against a float64 solve
+   printed beside LAPACK's) and its loop entry (INIT | HEAD, then TAIL |
+   HEAD) against `lm_step_ref` on a copy of its state: decisions equal,
+   costs 1e-5 relative, the candidate the solve entry's; the library
+   yardstick `cholesky_ex` + `cholesky_solve` timed beside. Each has a clock
+   build (-DEVO_COMP_CLOCKS), held at every shape to its plain build bit for
+   bit with its stages adding up to the total, timed, and its split by stage
+   printed (`kernels.comp_tile.STAGES`, `kernels.comp_step.STAGES`). Then the
    generic splat (forward and backward) and the fused
    warp-and-splat entries against their plain PyTorch versions on the card,
    at the shapes the main path gives them ([108, 256] and [108, 1024] events
@@ -548,16 +554,19 @@ def phase_comp_kernels(timer, dev, label: str, floor_ms: float) -> list[dict]:
     """Compensation's kernels against their plain versions on the card, at
     the main path's shapes (`run/time_comp.py`): kernel A at [108, 256],
     [108, 1024] (both losses), [864, 1024] (W = 8) and the 40 px grid's
-    [24, 1024]; kernel B at 108 tiles with W = 1 and 8, and at the 40 px
-    grid's 24 tiles."""
-    from evo_tpu_torch.run.time_comp import check_comp_step, check_comp_tile
+    [24, 1024]; kernel B at 108 tiles with W = 1 and 8, at the 40 px
+    grid's 24 tiles (these in one warp's registers) and at the 15 px grid's
+    192 (band 32, the block-wide factorisation)."""
+    from evo_tpu_torch.run.time_align import split_text
+    from evo_tpu_torch.run.time_comp import (STEP_SHAPES, TILE_SHAPES, check_comp_step,
+                                             check_comp_tile, clock_comp_step, clock_comp_tile)
 
-    rows = [check_comp_tile(timer, dev, nw, e, loss, REPS, tile)
-            for nw, e, loss, tile in ((1, 256, "edge", 20), (1, 1024, "edge", 20),
-                                      (1, 1024, "variance", 20), (8, 1024, "edge", 20),
-                                      (1, 1024, "edge", 40))]
-    rows += [check_comp_step(timer, dev, nw, tile, REPS)
-             for nw, tile in ((1, 20), (8, 20), (1, 40))]
+    rows = [dict(check_comp_tile(timer, dev, nw, e, loss, REPS, tile),
+                 **clock_comp_tile(timer, dev, nw, e, loss, REPS, tile))
+            for nw, e, loss, tile in TILE_SHAPES]
+    rows += [dict(check_comp_step(timer, dev, nw, tile, REPS),
+                  **clock_comp_step(timer, dev, nw, tile, REPS))
+             for nw, tile in STEP_SHAPES]
     for r in rows:
         r["floor_ms"] = floor_ms
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
@@ -570,6 +579,9 @@ def phase_comp_kernels(timer, dev, label: str, floor_ms: float) -> list[dict]:
               f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
               f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})  "
               f"plain {r['plain_ms'] * 1e3:.2f} us  library {lib} ({label})", flush=True)
+    for r in rows:
+        print(f"{r['kernel']} clock split {r['shape']} (clock build {r['clock_build_ms'] * 1e3:.2f}"
+              f" us; cycles, mean over rows | longest row): {split_text(r['clock'])}", flush=True)
     return rows
 
 
@@ -1778,14 +1790,15 @@ def main() -> int:
     # one nvcc for each source, started together
     t0 = time.perf_counter()
     libs = (splat._lib, align_step._lib, partial(align_step._lib, clocks=True), comp_tile._lib,
-            comp_step._lib)
+            partial(comp_tile._lib, clocks=True), comp_step._lib,
+            partial(comp_step._lib, clocks=True))
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
-    print(f"built the splat, alignment (and its clock build) and compensation kernels in "
+    print(f"built the splat, alignment and compensation kernels (and their clock builds) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
-                 "evo_comp_step"):
+                 "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -1894,10 +1907,10 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in mine), shape=at["shape"],
             ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
             bound_by=at["bound_by"], library_ms=at["library_ms"], floor_ms=at["floor_ms"],
-            host_us=at["host_us"],
+            host_us=at["host_us"], clock=at["clock"], clock_build_ms=at["clock_build_ms"],
             other_shapes={r["shape"]: {k: r[k] for k in (
                 "ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")} for r in mine if r is not at}))
+                "max_abs_err", "clock")} for r in mine if r is not at}))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

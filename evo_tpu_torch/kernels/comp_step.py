@@ -19,9 +19,12 @@ use by `kernels.nvcc` with `-fmad=false`:
   now and then.
 
 Both read the TV edges as `Edges` lays them out, built once per grid
-(`tracker.compensate.grid_edges`). Tensors on the card only: a CPU tensor
-raises, as does a failed build or launch. A window's result depends on that
-window's inputs alone.
+(`tracker.compensate.grid_edges`). `LmLoop(..., clocks=True)` launches the
+clock build instead (`-DEVO_COMP_CLOCKS`, a library of its own, on no path of
+the program): the same state, and each window's `clock64()` cycles by stage
+(`STAGES`) of the last launch in `LmLoop.clocks`. Tensors on the card only: a
+CPU tensor raises, as does a failed build or launch. A window's result
+depends on that window's inputs alone.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ import torch
 
 from evo_tpu_torch.kernels import nvcc
 
+# the largest band csrc/comp_step.cu takes; its bands 12 and 24 (the main
+# path's grids of 6 and 12 tile columns) run in one warp's registers, the
+# others over the block
 MAX_BAND = 64
 INIT, TAIL, HEAD = 1, 2, 4
 
@@ -70,18 +76,24 @@ _SIGNATURES = {
 FLOAT_STATE = (("v", (2,)), ("v_new", (2,)), ("r", ()), ("J", (2,)), ("r_new", ()),
                ("J_new", (2,)), ("lam", None), ("cost", None), ("cost0", None))
 INT_STATE = ("active", "bad", "iters")
-_lib_handle = None
+# stages of the clock build's [W, len(STAGES)] int64 output, in the kernel's
+# order (csrc/comp_step.cu's `Stage`)
+STAGES = ("init", "tail", "weights", "assemble", "pivot", "column", "update", "exchange", "back",
+          "candidate", "total")
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
-def _lib():
-    """The compiled kernels (built from csrc/comp_step.cu at first use)."""
-    global _lib_handle
+def _lib(clocks: bool = False):
+    """The compiled kernels (built from csrc/comp_step.cu at first use); with
+    `clocks`, their clock build (-DEVO_COMP_CLOCKS), a library of its own."""
     with _lib_lock:
-        if _lib_handle is None:
-            _lib_handle = nvcc.load("evo_comp_step", ["comp_step.cu"], _SIGNATURES,
-                                    extra_flags=("-fmad=false",))
-    return _lib_handle
+        if clocks not in _libs:
+            name, flags = "evo_comp_step", ("-fmad=false",)
+            if clocks:
+                name, flags = name + "_clock", flags + ("-DEVO_COMP_CLOCKS",)
+            _libs[clocks] = nvcc.load(name, ["comp_step.cu"], _SIGNATURES, extra_flags=flags)
+        return _libs[clocks]
 
 
 class Edges:
@@ -174,15 +186,17 @@ class LmLoop:
     [W] float32; active, bad, iters [W] int32 (views, by those names).
     `step(mode)` launches one trip of the kernel over the W windows: mode is
     `INIT` (the initial cost from v, r, J), `TAIL` (accept v_new from r_new,
-    J_new), each optionally `| HEAD` (the next candidate v_new)."""
+    J_new), each optionally `| HEAD` (the next candidate v_new). With
+    `clocks`, the clock build's launches, and `clocks` [W, len(STAGES)]
+    int64 holds each window's cycles by stage of the last launch that ran it."""
 
     def __init__(self, nw: int, edges: Edges, tv_weight: float, tv_huber: float,
-                 launch=None):
+                 launch=None, clocks: bool = False):
         t, dev = edges.t, edges.p.device  # the state lies with the edges
         _check_edges(edges, t, dev)
         if launch is None:  # `launch`: the tests' emulation of the kernel
             _check_card(dev, "tracker.compensate.lm_step_ref")
-            fn = _lib().evo_comp_lm_step
+            fn = _lib(clocks).evo_comp_lm_step
             launch = lambda *args: nvcc.launch(fn, self.v, *args)  # noqa: E731
         sizes = [nw if tail is None else nw * t * (2 if tail else 1) for _, tail in FLOAT_STATE]
         arena = torch.empty(sum(sizes) + len(INT_STATE) * nw, dtype=torch.float32, device=dev)
@@ -192,10 +206,13 @@ class LmLoop:
         ints = parts[-1].view(torch.int32)
         for k, name in enumerate(INT_STATE):
             setattr(self, name, ints[k * nw:(k + 1) * nw])
+        self.clocks = (torch.zeros((nw, len(STAGES)), dtype=torch.int64, device=dev)
+                       if clocks else None)
         self._ptrs = array.array("Q", [getattr(self, n).data_ptr() for n, _ in FLOAT_STATE]
-                                 + [getattr(self, n).data_ptr() for n in INT_STATE])
+                                 + [getattr(self, n).data_ptr() for n in INT_STATE]
+                                 + [0 if self.clocks is None else self.clocks.data_ptr()])
         g = edges
-        self._keep = (arena, g)
+        self._keep = (arena, g, self.clocks)
         self._args = (self._ptrs.buffer_info()[0], g.p.data_ptr(), g.q.data_ptr(),
                       g.start.data_ptr(), g.inc.data_ptr(), nw, t, g.p.shape[0], g.band)
         self._tv = (float(tv_weight), float(tv_huber))

@@ -18,7 +18,10 @@ raises, as does a larger tile or a failed build or launch. A row's result
 depends on that row's inputs alone.
 
 `TileLaunch` checks its tensors once and packs the kernel's pointers once, so
-the LM loop's launch at each trip is one ctypes call.
+the LM loop's launch at each trip is one ctypes call. Given `clocks` (int64
+[R, len(STAGES)]), it launches the clock build instead (`-DEVO_COMP_CLOCKS`,
+a library of its own, on no path of the program): the same outputs, and each
+row's `clock64()` cycles by stage.
 """
 
 from __future__ import annotations
@@ -62,19 +65,25 @@ _SIGNATURES = {
 }
 # the entry's pointer array, in the order of csrc/comp_tile.cu's `Args`
 POINTERS = ("vel", "ex", "ey", "dt_us", "valid", "tlx", "tly", "active", "live",
-            "r", "J", "escaped", "score")
-_lib_handle = None
+            "r", "J", "escaped", "score", "clocks")
+# stages of the clock build's [R, len(STAGES)] int64 output, in the kernel's
+# order (csrc/comp_tile.cu's `Stage`)
+STAGES = ("reach", "zero", "deposit", "copies", "escaped", "vertical", "horizontal", "pool",
+          "reduce", "total")
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
-def _lib():
-    """The compiled kernel (built from csrc/comp_tile.cu at first use)."""
-    global _lib_handle
+def _lib(clocks: bool = False):
+    """The compiled kernel (built from csrc/comp_tile.cu at first use); with
+    `clocks`, its clock build (-DEVO_COMP_CLOCKS), a library of its own."""
     with _lib_lock:
-        if _lib_handle is None:
-            _lib_handle = nvcc.load("evo_comp_tile", ["comp_tile.cu"], _SIGNATURES,
-                                    extra_flags=("-fmad=false",))
-    return _lib_handle
+        if clocks not in _libs:
+            name, flags = "evo_comp_tile", ("-fmad=false",)
+            if clocks:
+                name, flags = name + "_clock", flags + ("-DEVO_COMP_CLOCKS",)
+            _libs[clocks] = nvcc.load(name, ["comp_tile.cu"], _SIGNATURES, extra_flags=flags)
+        return _libs[clocks]
 
 
 def _check(vel, events: dict, tile: int, loss: str, out: dict, live, rows_per_window: int):
@@ -94,7 +103,8 @@ def _check(vel, events: dict, tile: int, loss: str, out: dict, live, rows_per_wi
                 valid=((rows, e), torch.bool), tlx=((rows,), torch.float32),
                 tly=((rows,), torch.float32), active=((rows,), torch.bool),
                 r=((rows,), torch.float32), J=((rows, 2), torch.float32),
-                escaped=((rows,), torch.bool), score=((rows,), torch.float32))
+                escaped=((rows,), torch.bool), score=((rows,), torch.float32),
+                clocks=((rows, len(STAGES)), torch.int64))
     named = {"vel": vel, **events, **out}
     if live is not None:
         if rows_per_window < 1 or rows % rows_per_window:
@@ -122,11 +132,11 @@ def _check(vel, events: dict, tile: int, loss: str, out: dict, live, rows_per_wi
 
 def pack(vel, events: dict, *, tile: int, scale: float, loss: str, weight: float,
          sigma: float, radius: float, blur, r, J, escaped=None, score=None, live=None,
-         rows_per_window: int = 1) -> tuple:
+         rows_per_window: int = 1, clocks=None) -> tuple:
     """The C entry's arguments but the stream, its pointer array first:
     (the array, which must outlive the launch, and the argument tuple)."""
     named = {"vel": vel, **events, "live": live, "r": r, "J": J, "escaped": escaped,
-             "score": score}
+             "score": score, "clocks": clocks}
     ptrs = array.array("Q", [0 if named[n] is None else named[n].data_ptr() for n in POINTERS])
     rows, e = events["ex"].shape
     return ptrs, (ptrs.buffer_info()[0], rows, e, 3 * tile, rows_per_window, LOSSES[loss],
@@ -142,21 +152,22 @@ class TileLaunch:
     `live` (int32 [R / rows_per_window], nonzero: the window iterates), the
     rows of the other windows are left unwritten. `blur` holds the structure
     tensor's blur taps at distance 0..3. The checks run here, before any
-    build; `launch()` queues one launch on the current stream."""
+    build; `launch()` queues one launch on the current stream. With `clocks`
+    (int64 [R, len(STAGES)]) it is the clock build's launch."""
 
     def __init__(self, vel, events: dict, *, tile: int, scale: float, loss: str,
                  weight: float, sigma: float, radius: float, blur, r, J, escaped=None,
-                 score=None, live=None, rows_per_window: int = 1):
-        _check(vel, events, tile, loss, dict(r=r, J=J, escaped=escaped, score=score), live,
-               rows_per_window)
+                 score=None, live=None, rows_per_window: int = 1, clocks=None):
+        _check(vel, events, tile, loss, dict(r=r, J=J, escaped=escaped, score=score,
+                                             clocks=clocks), live, rows_per_window)
         # the tensors stay alive as long as the launch does
-        self._keep = (vel, events, r, J, escaped, score, live)
+        self._keep = (vel, events, r, J, escaped, score, live, clocks)
         self._ptrs, self._args = pack(
             vel, events, tile=tile, scale=scale, loss=loss, weight=weight, sigma=sigma,
             radius=radius, blur=blur, r=r, J=J, escaped=escaped, score=score, live=live,
-            rows_per_window=rows_per_window)
+            rows_per_window=rows_per_window, clocks=clocks)
         self._on = vel
-        self._fn = _lib().evo_comp_tile
+        self._fn = _lib(clocks is not None).evo_comp_tile
 
     def launch(self) -> None:
         nvcc.launch(self._fn, self._on, *self._args)

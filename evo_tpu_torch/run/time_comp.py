@@ -2,6 +2,7 @@
 versions and timed, and the seconds it takes end to end in the evaluator.
 
     python evo_tpu_torch/run/time_comp.py [--root DIR] [--modes tracker sync default]
+    python evo_tpu_torch/run/time_comp.py [--root DIR] --kernels
 
 `main` times the evaluator's runs on the 3walls scene (1.2 s at DAVIS
 density, seed 3, as `chip_smoke.py` drives it) with the `evo_tpu_torch`
@@ -21,7 +22,12 @@ time them: device ms a launch over many launches between one pair of CUDA
 events behind a busy queue, host µs a launch, the bound, the plain version's
 time and, for B, the library's (`torch.linalg.cholesky_ex` and
 `torch.cholesky_solve` on the same assembled dense systems, which the port
-never calls).
+never calls). Where the tree's wrappers have the clock builds (`STAGES`),
+`clock_comp_tile` and `clock_comp_step` hold each clock build to its plain
+build bit for bit and split a launch's cycles by stage. `--kernels` runs
+all of these at `TILE_SHAPES` and `STEP_SHAPES` (phase 3's shapes) on the
+tree under DIR and prints one JSON line a shape, so two trees' kernels can
+be timed in turns.
 """
 
 from __future__ import annotations
@@ -51,6 +57,13 @@ SCENE = dict(duration_s=1.2, fps=20.0, seed=3, scene="3walls", contrast_threshol
 # kernel A against its plain version: the score relative, J absolute (r = maxRes
 # - score, near 1000, cannot hold the score's 0.005-0.3 to 1e-4 alone)
 TOL_SCORE, TOL_J = 1e-4, 1e-3
+# the main path's shapes (`chip_smoke.py` phase 3): kernel A (windows, events
+# a tile, loss, tile px) and kernel B (windows, tile px); B also at the 15 px
+# tiles of `dist.multihost`'s scaling measurement (192 tiles, band 32), the
+# band its block-wide factorisation takes
+TILE_SHAPES = ((1, 256, "edge", 20), (1, 1024, "edge", 20), (1, 1024, "variance", 20),
+               (8, 1024, "edge", 20), (1, 1024, "edge", 40))
+STEP_SHAPES = ((1, 20), (8, 20), (1, 40), (1, 15))
 
 
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -302,6 +315,120 @@ def check_comp_step(timer, dev, nw: int, tile: int = 20, reps: int = 200) -> dic
                 library_ms=timer.device_ms(library, 20))
 
 
+def _differ(a: dict, b: dict) -> list:
+    """The names whose tensors differ between a and b (NaN equal to NaN)."""
+    return [k for k, v in a.items()
+            if not torch.equal(torch.nan_to_num(v), torch.nan_to_num(b[k]))
+            or not torch.equal(torch.isnan(v), torch.isnan(b[k]))]
+
+
+def _split(stages, clocks) -> dict:
+    """Cycles by stage: the mean over the rows and the longest row's (which
+    sets the launch's time)."""
+    c = clocks.double().cpu()
+    longest = int(c[:, -1].argmax())
+    return dict(stages=list(stages), mean_cycles=[round(float(v), 1) for v in c.mean(0)],
+                longest_row_cycles=[int(v) for v in c[longest]])
+
+
+def clock_comp_tile(timer, dev, nw: int, e: int, loss: str = "edge", reps: int = 200,
+                    tile: int = 20) -> dict:
+    """Kernel A's clock build (`TileLaunch(..., clocks=)`) on `check_comp_tile`'s
+    rows: every output the plain build's bits, each row's stage cycles adding
+    up to its total (raises otherwise). Returns its device ms over `reps`
+    launches (`clock_build_ms`) and the split of one more launch over the
+    rows that took the loss (`clock`)."""
+    from evo_tpu_torch.kernels import comp_tile
+    from evo_tpu_torch.tracker import compensate as comp
+
+    vel, data = tile_rows(dev, nw, e, tile)
+    rows = vel.shape[0]
+    kw = dict(tile=tile, scale=1e-3, loss=loss, weight=comp.GAUSS_NORM,
+              sigma=comp.SIGMA_SPLAT, radius=comp.SPLAT_RADIUS, blur=comp.blur_taps())
+    outs = []
+    for clocked in (False, True):
+        o = dict(r=torch.empty(rows, device=dev), J=torch.empty((rows, 2), device=dev),
+                 escaped=torch.empty(rows, dtype=torch.bool, device=dev),
+                 score=torch.empty(rows, device=dev))
+        clocks = (torch.zeros((rows, len(comp_tile.STAGES)), dtype=torch.int64, device=dev)
+                  if clocked else None)
+        launch = comp_tile.TileLaunch(vel, _events(data), **kw, **o, clocks=clocks).launch
+        launch()
+        outs.append((o, clocks, launch))
+    torch.cuda.synchronize()
+    (plain, _, _), (clocked, clocks, launch) = outs
+    differ = _differ({k: v.float() for k, v in plain.items()},
+                   {k: v.float() for k, v in clocked.items()})
+    ran = (data.active & ~clocked["escaped"]).cpu()
+    c = clocks.cpu()
+    if differ or not torch.equal(c[:, :-1].sum(1), c[:, -1]) or not (c[:, -1] > 0).all():
+        raise AssertionError(f"comp_tile's clock build [{rows}, {e}] {tile} px {loss}: outputs "
+                             f"{differ} differ, or its stages do not add up: {c[:4].tolist()}")
+    ms = timer.device_ms(launch, reps)
+    launch()
+    torch.cuda.synchronize()
+    return dict(clock_build_ms=ms, clock=_split(comp_tile.STAGES, clocks[ran.to(dev)]))
+
+
+def clock_comp_step(timer, dev, nw: int, tile: int = 20, reps: int = 200) -> dict:
+    """Kernel B's clock build (`LmLoop(..., clocks=True)`) against its plain
+    build on `check_comp_step`'s first system: INIT | HEAD, then HEAD, each
+    state the plain build's bits, each window's stages adding up to its
+    total (raises otherwise). Returns its device ms over `reps` HEAD
+    launches (`clock_build_ms`) and the split of one more (`clock`)."""
+    from evo_tpu_torch.kernels import comp_step
+    from evo_tpu_torch.tracker import compensate as comp
+
+    tx, ty = 240 // tile, 180 // tile
+    t = tx * ty
+    vel, data = tile_rows(dev, nw, 1024, tile, seed=5)
+    edges = comp.grid_edges(ty, tx, dev)
+    r, J = comp.tile_residual_and_jacobian(vel, data, tile, 1e-3)
+    loops = []
+    for clocked in (False, True):
+        loop = comp_step.LmLoop(nw, edges, tv_weight=1e3, tv_huber=10.0, clocks=clocked)
+        loop.v.copy_(vel.reshape(nw, t, 2))
+        loop.r.copy_(r.reshape(nw, t))
+        loop.J.copy_(J.reshape(nw, t, 2))
+        loop.step(comp_step.INIT | comp_step.HEAD)
+        loop.step(comp_step.HEAD)
+        loops.append(loop)
+    torch.cuda.synchronize()
+    # every part of the state the kernel writes (r_new and J_new are kernel A's)
+    names = [n for n, _ in comp_step.FLOAT_STATE if n not in ("r_new", "J_new")] \
+        + list(comp_step.INT_STATE)
+    differ = _differ(*({n: getattr(lp, n).float() for n in names} for lp in loops))
+    c = loops[1].clocks.cpu()
+    if differ or not torch.equal(c[:, :-1].sum(1), c[:, -1]) or not (c[:, -1] > 0).all():
+        raise AssertionError(f"comp_step's clock build, {nw} x {t} tiles: state {differ} "
+                             f"differs, or its stages do not add up: {c.tolist()}")
+    head = lambda: loops[1].step(comp_step.HEAD)  # noqa: E731
+    ms = timer.device_ms(head, reps)
+    head()
+    torch.cuda.synchronize()
+    return dict(clock_build_ms=ms, clock=_split(comp_step.STAGES, loops[1].clocks))
+
+
+def time_kernels(timer, dev, reps: int = 200) -> list[dict]:
+    """Both kernels of this tree at `TILE_SHAPES` and `STEP_SHAPES`: each
+    `check_comp_tile` / `check_comp_step` row, with the clock build's split
+    where the tree has one."""
+    from evo_tpu_torch.kernels import comp_step, comp_tile
+
+    rows = []
+    for nw, e, loss, tile in TILE_SHAPES:
+        row = check_comp_tile(timer, dev, nw, e, loss, reps, tile)
+        if hasattr(comp_tile, "STAGES"):
+            row.update(clock_comp_tile(timer, dev, nw, e, loss, reps, tile))
+        rows.append(row)
+    for nw, tile in STEP_SHAPES:
+        row = check_comp_step(timer, dev, nw, tile, reps)
+        if hasattr(comp_step, "STAGES"):
+            row.update(clock_comp_step(timer, dev, nw, tile, reps))
+        rows.append(row)
+    return rows
+
+
 def simulate(dev):
     from evo_tpu_torch.io import sim
 
@@ -358,6 +485,8 @@ def main(argv=None) -> int:
                     help="directory that holds the evo_tpu_torch package to time")
     ap.add_argument("--modes", nargs="+", default=["tracker", "sync", "default"],
                     choices=["tracker", "sync", "default"])
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the two kernels at phase 3's shapes instead of the modes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_comp: no CUDA card", file=sys.stderr)
@@ -368,10 +497,35 @@ def main(argv=None) -> int:
     from evo_tpu_torch.run.time_splat import card
 
     label = card()
+    root = os.path.dirname(os.path.dirname(evo_tpu_torch.__file__))
+    if args.kernels:
+        from evo_tpu_torch.run.time_align import split_text
+        from evo_tpu_torch.run.time_splat import Timer
+
+        dev = torch.device("cuda")
+        for row in time_kernels(Timer(dev), dev):
+            lib = row["library_ms"]
+            print(f"time_comp {root}: kernel {row['kernel']} {row['shape']}: device "
+                  f"{row['ms'] * 1e3:.2f} us  host {row['host_us']:.2f} us  bound "
+                  f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})  library "
+                  f"{'none' if lib is None else f'{lib * 1e3:.2f} us'} ({label})", flush=True)
+            if "clock" in row:
+                print(f"time_comp {root}: clock split {row['kernel']} {row['shape']} (build "
+                      f"{row['clock_build_ms'] * 1e3:.2f} us; cycles, mean | longest row): "
+                      f"{split_text(row['clock'])}", flush=True)
+            print("time_comp_kernel " + json.dumps(dict(row, root=root, card=label),
+                                                   default=str), flush=True)
+        from evo_tpu_torch.kernels import nvcc
+
+        for name, log in sorted(nvcc.build_logs.items()):
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"time_comp {root}: ptxas ({name}): {line.strip()}", flush=True)
+        return 0
     dataset = simulate(torch.device("cuda"))
     for mode in args.modes:
         row = run_mode(dataset, mode)
-        row.update(root=os.path.dirname(os.path.dirname(evo_tpu_torch.__file__)), card=label)
+        row.update(root=root, card=label)
         print("time_comp " + json.dumps(row), flush=True)
     return 0
 

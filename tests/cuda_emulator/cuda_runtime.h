@@ -7,9 +7,9 @@
 // A launch runs the grid's blocks one after another; each block runs as
 // one std::thread for each thread of the block. `__shared__` variables are function statics, so
 // the threads of the running block share them. `__syncthreads` is a
-// std::barrier over the block; the warp shuffles exchange values through an
-// array between two barriers of the warp, and `__syncwarp` is one such
-// barrier; `atomicAdd` takes a mutex. A launch's dynamic shared memory is a
+// std::barrier over the block; the warp shuffles and ballots exchange values
+// through an array between two barriers of the warp, and `__syncwarp` is one
+// such barrier; `atomicAdd` takes a mutex. A launch's dynamic shared memory is a
 // buffer of the block, which `evo_emu::dynamic_smem()` returns (the tests
 // rewrite `extern __shared__ __align__(16) float name[];` into a call of it).
 // Compile with `g++ -std=c++20 -ffp-contract=off` so that each product and
@@ -44,6 +44,10 @@
 struct float2 {
   float x, y;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -90,6 +94,20 @@ T shuffle(T v, int src_lane) {
   return out;
 }
 
+// The warp's predicates as a mask, bit l from lane l (every lane of the
+// warp takes part).
+inline unsigned ballot(bool pred) {
+  const int t = (int)thread_idx.x, w = t >> 5;
+  block->exchange[t] = pred ? 1 : 0;
+  block->warps[w]->arrive_and_wait();
+  unsigned m = 0;
+  const int lanes = (int)block->exchange.size() - (w << 5);
+  for (int l = 0; l < 32 && l < lanes; ++l)
+    if (block->exchange[(w << 5) | l]) m |= 1u << l;
+  block->warps[w]->arrive_and_wait();
+  return m;
+}
+
 template <class F>
 void launch(dim3 grid, dim3 threads, size_t smem, cudaStream_t, F&& body) {
   for (unsigned b = 0; b < grid.x; ++b) {
@@ -129,6 +147,8 @@ template <class T>
 T __shfl_sync(unsigned, T v, int src) {
   return evo_emu::shuffle(v, src);
 }
+inline unsigned __ballot_sync(unsigned, bool pred) { return evo_emu::ballot(pred); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 
 inline float atomicAdd(float* at, float v) {
   std::lock_guard<std::mutex> hold(evo_emu::block->atomic);
@@ -145,6 +165,9 @@ inline T __ldg(const T* p) { return *p; }
 inline float __fdividef(float x, float y) { return x / y; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+// the card's fast exponential (its 2^x unit, within a few ulp) taken as the
+// exact one
+inline float __expf(float x) { return std::exp(x); }
 
 inline long long clock64() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(

@@ -216,7 +216,7 @@ def _tile_args(rows=4, e=8, **change):
     ({"r": torch.empty(3)}, ValueError),
 ])
 def test_comp_tile_checks_before_it_builds(change, error, monkeypatch):
-    monkeypatch.setattr(comp_tile, "_lib", lambda: pytest.fail("built"))
+    monkeypatch.setattr(comp_tile, "_lib", lambda *a: pytest.fail("built"))
     vel, events, out = _tile_args(**change)
     with pytest.raises(error):
         comp_tile.TileLaunch(vel, events, tile=20, scale=1e-3, loss="edge", weight=0.16,
@@ -239,7 +239,7 @@ def _edges(p, q, t=6):
       "edges": _edges([0] * 7, [39] * 7, t=40)}, ValueError),
 ])
 def test_comp_step_checks_before_it_builds(change, error, monkeypatch):
-    monkeypatch.setattr(comp_step, "_lib", lambda: pytest.fail("built"))
+    monkeypatch.setattr(comp_step, "_lib", lambda *a: pytest.fail("built"))
     a = dict(jj=torch.zeros(2, 6, 2, 2), jr=torch.zeros(2, 6, 2), w2=torch.zeros(2, 7),
              d=torch.zeros(2, 7, 2), lam=torch.ones(2), edges=_edges([0] * 7, [1] * 7))
     a.update(change)

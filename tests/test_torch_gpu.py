@@ -283,6 +283,26 @@ def test_comp_step_matches_plain_on_card(cuda_device, nw, tile):
     assert row["errors"]["tail"]["active_equal"]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [20, 40])
+def test_comp_clock_builds_on_card(cuda_device, tile):
+    """Compensation's clock builds (-DEVO_COMP_CLOCKS): kernel A's at one
+    window of `tile` px tiles, E = 1024, and kernel B's HEAD launch, each
+    with the bits of its plain build in every output, each row's or
+    window's stage cycles adding up to its total (`run/time_comp.py`'s
+    `clock_comp_tile` and `clock_comp_step` raise otherwise), and counted as
+    launches of the kernels."""
+    from evo_tpu_torch.run.time_comp import clock_comp_step, clock_comp_tile
+
+    n_tile, n_step = comp_tile.launches_comp_tile, comp_step.launches_step
+    a = clock_comp_tile(_Once(), cuda_device, 1, 1024, "edge", reps=1, tile=tile)
+    b = clock_comp_step(_Once(), cuda_device, 1, tile, reps=1)
+    assert comp_tile.launches_comp_tile > n_tile and comp_step.launches_step > n_step
+    assert a["clock"]["stages"] == list(comp_tile.STAGES)
+    assert b["clock"]["stages"] == list(comp_step.STAGES)
+    assert a["clock"]["mean_cycles"][-1] > 0 and b["clock"]["mean_cycles"][-1] > 0
+
+
 def _vo_keyframes(n=12, n_pts=120, noise_px=0.3):
     """Keyframes of a camera translating 0.25 per frame past a cloud of
     known points, with pixel noise, and the ground-truth poses."""

@@ -98,3 +98,45 @@ def test_both_packages_solve_alike_until_a_stop_parts_them(traces):
             break
         assert not d["int_inputs"], (key, d)
         assert not trace._float_inputs_apart(d), (key, d)
+
+
+def test_a_candidate_nudge_moves_only_its_trip(traces):
+    """`CandidateNudge` records the cost of each linearisation of a row's
+    solve and changes nothing unless asked; a large nudge of the trip whose
+    candidate reached the lowest cost (an accepted trip) moves that cost
+    alone, rejects the candidate, and so sends the LM down another path
+    from that trip on."""
+    jt, _ = traces
+    s = _solving_steps(jt)[0]
+    plain = trace.replay_rows(jt, s, [0])[0]
+    with trace.CandidateNudge() as rec:
+        same = trace.replay_rows(jt, s, [0])[0]
+    assert same == plain
+    costs = [float(c[0]) for c in rec.costs]
+    assert len(costs) >= 2 and all(c > 0 for c in costs)
+    best = 1 + min(range(len(costs) - 1), key=lambda k: costs[k + 1])
+    assert costs[best] < costs[0]
+    with trace.CandidateNudge(best, 1.0) as nudged:
+        trace.replay_rows(jt, s, [0])
+    after = [float(c[0]) for c in nudged.costs]
+    assert after[:best] == costs[:best] and after[best] > max(costs[:best])
+    assert after[best + 1:] != costs[best + 1:]
+
+
+def test_a_stop_at_its_threshold_is_a_tie_of_one_trip(traces):
+    """Each row of the prefix that parts at its stop test (`at_the_stop`)
+    has a trip whose decrease of the cost lies within `TIE` of ftol, and a
+    nudge of that trip's candidate cost gives `evo_tpu`'s outputs to
+    rounding (`trip_decisions`' `decided_at`)."""
+    jt, _ = traces
+    found = 0
+    for s in _solving_steps(jt):
+        for i, d in enumerate(trace.replay_rows(jt, s)):
+            if trace.within_rounding(d):
+                continue
+            found += 1
+            got = trace.trip_decisions(jt, s, i)
+            assert got["decided_at"] is not None and got["decided_at"][1] == "stop", (
+                s["step"], i, got)
+            assert got["stop_margin"] <= trace.TIE and got["reached_by"] is not None
+    assert found >= 1

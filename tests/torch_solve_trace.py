@@ -2,12 +2,13 @@
 on one written dataset: which solve first takes other inputs.
 
     env JAX_PLATFORMS=cpu python tests/torch_solve_trace.py OUT.json \
-        [--duration S] [--control centre budget]
+        [--scene shapes|plane] [--duration S] [--control centre budget]
 
-It writes the `shapes` quality row's scene (the port's simulator, 48
-polygons, seed 1; 6 s unless `--duration` cuts it) once, runs the row's
-protocol (the tracker experiment, no compensation) through both packages on
-the CPU, and records every solved row of every event sub-batch, keyed by
+It writes one quality row's scene once (the port's simulator, seed 1):
+`shapes` (the `shapes` row: 48 polygons, 6 s) or `plane` (the `plane_age`
+row: the textured plane, 12 s); `--duration` cuts it to a prefix. It runs
+the rows' protocol (the tracker experiment, no compensation) through both
+packages on the CPU, and records every solved row of every event sub-batch, keyed by
 (track id, solve ordinal):
 
 - before the solve: the sub-batch, the patch-table row (centre, warp, flow,
@@ -29,7 +30,8 @@ earlier output agrees to 1e-5 px, the first output apart by more than 1e-5
 px, `evo_tpu`'s inputs of their sub-batches replayed through the port's
 solve, every sub-batch so replayed (`replay_summary`: the gaps' quantiles,
 the solves beyond float32 rounding and how many of them sit at the LM's
-stop test), and both packages' trajectories scored by both scorers.
+stop test, at one trip's accept or stop test, or within the solve's own
+response to a rounding-sized change of one cost: `trip_decisions`), and both packages' trajectories scored by both scorers.
 `--control centre` runs `evo_tpu` alone once more with every solved centre
 raised by one float32 ulp (`budget`: every raw budget), and scores that row
 too. It imports both packages and runs on the CPU, the port on one thread
@@ -69,6 +71,7 @@ from evo_tpu_torch.io import sim  # noqa: E402
 from evo_tpu_torch.io.davis import Davis240cDataset  # noqa: E402
 from evo_tpu_torch.run import quality  # noqa: E402
 from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams  # noqa: E402
+from evo_tpu_torch.solve.lm import huber_cost  # noqa: E402
 from evo_tpu_torch.tracker import align  # noqa: E402
 from evo_tpu_torch.tracker import patch_state as ps  # noqa: E402
 
@@ -78,12 +81,19 @@ CORNERS = np.array([[-12.0, -12.0], [12.0, -12.0], [-12.0, 12.0], [12.0, 12.0]])
 INPUT_PX, INPUT_RAD, OUTPUT_PX = 1e-4, 1e-5, 1e-5
 
 
-def write_scene(out_dir: str, duration_s: float = 6.0) -> str:
-    """The `shapes` row's scene, written once in the dataset format."""
-    cfg = quality.suite_configs()["shapes"]
+# the quality row whose scene and protocol each `--scene` takes
+ROWS = {"shapes": "shapes", "plane": "plane_age"}
+
+
+def write_scene(out_dir: str, duration_s: float | None = None, scene: str = "shapes") -> str:
+    """The scene of `scene`'s quality row (`ROWS`), its first `duration_s`
+    seconds (default: the row's), written once in the dataset format."""
+    cfg = quality.suite_configs()[ROWS[scene]]
+    assert cfg["scene"] == scene and cfg["tracker_experiment"]
+    kw = dict(texture_cells=cfg["texture_cells"]) if "texture_cells" in cfg else {}
     out = sim.EventCameraSimulator(sim.SimParams(
-        duration_s=duration_s, fps=20.0, seed=1, scene="shapes",
-        texture_cells=cfg["texture_cells"]), device="cpu").generate()
+        duration_s=cfg["duration_s"] if duration_s is None else duration_s, fps=20.0,
+        seed=1, scene=scene, **kw), device="cpu").generate()
     return sim.write_dataset(os.path.join(out_dir, "ds"), out)
 
 
@@ -413,22 +423,25 @@ ROUND_PX, ROUND_RAD, ROUND_COST = 5e-4, 2e-5, 2e-5
 FTOL_MOVES = (0.98, 1.02)
 
 
-def replay_rows(jt: Trace, s: dict, rows=None, ftol_scale: float = 1.0) -> list[dict]:
-    """`evo_tpu`'s inputs of sub-batch s (rows `rows` of it, default all;
-    the gradient store of its frame) through the port's `solve_step_ref` on
-    the CPU, with the LM's stop threshold scaled by `ftol_scale`; per row
-    the gaps to `evo_tpu`'s recorded outputs: centre and the warp's rect
-    corners (px), flow (rad), cost (relative), and whether lost, budget and
-    alive are equal."""
-    rows = list(range(len(s["rows"])) if rows is None else rows)
+def _solve_rows(jt: Trace, s: dict, rows: list, ftol_scale: float = 1.0):
+    """`evo_tpu`'s inputs of rows `rows` of sub-batch s (the gradient store
+    of its frame) through the port's `solve_step_ref` on the CPU, with the
+    LM's stop threshold scaled by `ftol_scale`: (table, ran, cost, lost)."""
     table = ps.PatchTable(**{k: torch.as_tensor(v[rows]) for k, v in s["pre"].items()})
     grads, latest = jt.store(s["frame"] - 1)
     saved = align.ALIGN_FTOL
     align.ALIGN_FTOL = saved * ftol_scale
     try:
-        new, ran, cost, lost = align.solve_step_ref(table, grads, latest)
+        return align.solve_step_ref(table, grads, latest)
     finally:
         align.ALIGN_FTOL = saved
+
+
+def _gaps(new, ran, cost, lost, s: dict, rows: list) -> list[dict]:
+    """Per row, the port's solve (`_solve_rows`) against `evo_tpu`'s
+    recorded outputs of sub-batch s: centre and the warp's rect corners
+    (px), flow (rad), cost (relative), and whether lost, budget and alive
+    are equal."""
     post = {k: v[rows] for k, v in s["post"].items()}
     out = []
     for j, i in enumerate(rows):
@@ -444,6 +457,14 @@ def replay_rows(jt: Trace, s: dict, rows=None, ftol_scale: float = 1.0) -> list[
     return out
 
 
+def replay_rows(jt: Trace, s: dict, rows=None, ftol_scale: float = 1.0) -> list[dict]:
+    """`evo_tpu`'s inputs of sub-batch s (rows `rows` of it, default all)
+    through the port's solve, with the LM's stop threshold scaled by
+    `ftol_scale`: per row the gaps to `evo_tpu`'s outputs (`_gaps`)."""
+    rows = list(range(len(s["rows"])) if rows is None else rows)
+    return _gaps(*_solve_rows(jt, s, rows, ftol_scale), s, rows)
+
+
 def within_rounding(d: dict) -> bool:
     return (d["centre"] <= ROUND_PX and d["warp"] <= ROUND_PX and d["flow"] <= ROUND_RAD
             and d["cost"] <= ROUND_COST and d["same"])
@@ -456,6 +477,90 @@ def at_the_stop(jt: Trace, s: dict, i: int) -> bool:
     return any(within_rounding(replay_rows(jt, s, [i], scale)[0]) for scale in FTOL_MOVES)
 
 
+# a trip's relative decrease of the cost within TIE of a test's threshold
+# (0 for the accept test `cost_new < cost`, ftol for the stop test) is a tie
+# that rounding can decide: TIE is 2 % of ftol, as `FTOL_MOVES`, and the
+# order of the two packages' cost gaps (a few 1e-6). A candidate's
+# residuals scaled by 1 -+ TIE move its cost by TIE to 2 TIE relative (the
+# Huber cost is linear, then quadratic, in them), enough to turn any tie.
+TIE = 2e-6
+CANDIDATE_NUDGES = (-TIE, TIE)
+
+
+class CandidateNudge:
+    """While entered, `align.lm_solve` runs with the linearisation's
+    residuals at call `trip` (call 0 is the start, call k the candidate of
+    LM trip k) scaled by 1 + `scale`: that candidate's cost moves, and with
+    it the trip's accept and stop tests, but not the candidate. `costs`
+    records each call's cost as `lm_solve` takes it."""
+
+    def __init__(self, trip: int | None = None, scale: float = 0.0):
+        self.trip, self.scale, self.costs = trip, scale, []
+
+    def __enter__(self):
+        self._saved = align.lm_solve
+
+        def lm_solve(lin, x0, **kw):
+            def nudged(x):
+                r, J = lin(x)
+                if len(self.costs) == self.trip:
+                    r = r * (1.0 + self.scale)
+                sq = (r.reshape(r.shape[0], -1, kw["block_size"]) ** 2).sum(-1)
+                self.costs.append(huber_cost(sq, kw["huber_delta"]))
+                return r, J
+
+            return self._saved(nudged, x0, **kw)
+
+        align.lm_solve = lm_solve
+        return self
+
+    def __exit__(self, *exc):
+        align.lm_solve = self._saved
+
+
+def trip_decisions(jt: Trace, s: dict, i: int) -> dict:
+    """Row i of sub-batch s through the port's solve, trip by trip: each
+    trip's relative decrease of the cost (`(best - cost_new) / best`, best
+    the lowest cost before it; accepted where > 0, stopping where also <=
+    ftol); the smallest distance of a decrease to each test's threshold
+    (`accept_margin`, `stop_margin`); the trips within TIE of one (`ties`);
+    `decided_at`: the first tie whose candidate cost, nudged by
+    `CANDIDATE_NUDGES`, gives `evo_tpu`'s outputs to rounding (None: no
+    tie does). Then the same nudge at every trip: the largest move of the
+    port's own outputs (`own_spread`, centre and corners px, flow rad) and
+    the first trip whose nudge reaches `evo_tpu`'s outputs to rounding
+    (`reached_by`), which shows the gap is the size of the solve's own
+    response to a rounding-sized change of one cost, tie or not."""
+    rows = [i]
+    with CandidateNudge() as plain:
+        base = _solve_rows(jt, s, rows)
+    costs = [float(c[0]) for c in plain.costs]
+    dec = {k: (min(costs[:k]) - costs[k]) / min(costs[:k]) for k in range(1, len(costs))}
+    thresholds = dict(accept=0.0, stop=align.ALIGN_FTOL)
+    ties = [(k, t) for k in dec for t, at in thresholds.items() if abs(dec[k] - at) <= TIE]
+    out = dict(trips=len(costs) - 1, ties=ties, decided_at=None, reached_by=None,
+               **{f"{t}_margin": min((abs(v - at) for v in dec.values()), default=None)
+                  for t, at in thresholds.items()})
+    spread = dict(centre=0.0, warp=0.0, flow=0.0)
+    for k in dec:
+        for scale in CANDIDATE_NUDGES:
+            with CandidateNudge(k, scale):
+                new, ran, cost, lost = _solve_rows(jt, s, rows)
+            spread["centre"] = max(spread["centre"], float(
+                (new.center[0] - base[0].center[0]).abs().max()))
+            spread["warp"] = max(spread["warp"], _warp_px(
+                new.warp[0].numpy(), base[0].warp[0].numpy(), s["pre"]["center"][i]))
+            spread["flow"] = max(spread["flow"], _angle(new.flow[0], base[0].flow[0]))
+            if within_rounding(_gaps(new, ran, cost, lost, s, rows)[0]):
+                tie = [t for kk, t in ties if kk == k]
+                if tie and out["decided_at"] is None:
+                    out["decided_at"] = (k, tie[0])
+                if out["reached_by"] is None:
+                    out["reached_by"] = k
+    out["own_spread"] = spread
+    return out
+
+
 def replay_through_port(jt: Trace, at) -> dict:
     """One sub-batch of `evo_tpu` through the port's solve: the largest
     gaps over its rows."""
@@ -466,11 +571,22 @@ def replay_through_port(jt: Trace, at) -> dict:
                 same=all(d["same"] for d in got))
 
 
+def _geometry_within_rounding(d: dict) -> bool:
+    return (d["centre"] <= ROUND_PX and d["warp"] <= ROUND_PX and d["flow"] <= ROUND_RAD
+            and d["cost"] <= ROUND_COST)
+
+
 def replay_summary(jt: Trace) -> dict:
     """Every sub-batch of `evo_tpu` replayed through the port's solve: the
     quantiles of the centres' and warps' gaps (px) to `evo_tpu`'s outputs;
     the solves beyond rounding, and how many of them sit at the LM's stop
-    (`at_the_stop`)."""
+    (`at_the_stop`); the others (`elsewhere`), each with its gaps, whether
+    its geometry is within rounding (then only the budget, `lost` or
+    `alive` differ: an integer decided on a float) and its
+    `trip_decisions`; of those, how many are decided at one trip's accept
+    or stop test (`decided_at`), how many the solve's own response to a
+    rounding-sized change of one cost reaches (`reached_by`), and how many
+    neither (`undecided`)."""
     centre, warp, apart = [], [], []
     for s in jt.steps:
         if len(s["rows"]) == 0:
@@ -481,26 +597,54 @@ def replay_summary(jt: Trace) -> dict:
             if not within_rounding(d):
                 apart.append((s, i, d))
     q = (0.5, 0.9, 0.99, 1.0)
+    stop = [at_the_stop(jt, s, i) for s, i, _ in apart]
+    elsewhere = [dict(step=s["step"], row=i, track=int(s["pre"]["track_id"][i]),
+                      geometry_within_rounding=_geometry_within_rounding(d),
+                      **d, **trip_decisions(jt, s, i))
+                 for (s, i, d), st in zip(apart, stop) if not st]
+    tests = [e["decided_at"][1] for e in elsewhere if e["decided_at"]]
+    reached = [e for e in elsewhere if not e["decided_at"] and e["reached_by"]]
     return dict(solves=len(centre), centre_px=dict(zip(q, np.quantile(centre, q).tolist())),
                 warp_px=dict(zip(q, np.quantile(warp, q).tolist())),
-                beyond_rounding=len(apart),
-                at_the_stop=sum(at_the_stop(jt, s, i) for s, i, _ in apart),
+                beyond_rounding=len(apart), at_the_stop=sum(stop),
+                decided_at={t: tests.count(t) for t in ("accept", "stop")},
+                reached_by_own_spread=len(reached),
+                undecided=len(elsewhere) - len(tests) - len(reached), elsewhere=elsewhere,
                 first=[(s["step"], i, int(s["pre"]["track_id"][i]), d["centre"], d["warp"])
                        for s, i, d in apart[:10]])
 
 
-def score(trajectories: dict, ds_dir: str) -> dict:
-    """(error px, age s, tracks) by the port's scorer and by `evo_tpu`'s."""
+def score(trajectories: dict, ds_dir: str, per_track: bool = False) -> dict:
+    """(error px, age s, tracks) by the port's scorer and by `evo_tpu`'s;
+    with `per_track`, also the port scorer's error of each track."""
     ds = Davis240cDataset(ds_dir)
     p = quality.evaluate_tracker(trajectories, ds.gt_t_us, ds.gt_poses, ds.calib,
                                  plane_depth=2.0, scene="plane", device="cpu")
     jds = jdavis.Davis240cDataset(ds_dir)
     j = jquality.evaluate_tracker(trajectories, jds.gt_t_us, jds.gt_poses, jds.calib,
                                   plane_depth=2.0, scene="plane")
-    return dict(port=[float(p.mean_distance_error_px), float(p.mean_feature_age_s),
-                      int(p.num_tracks)],
-                evo_tpu=[float(j.mean_distance_error_px), float(j.mean_feature_age_s),
-                         int(j.num_tracks)])
+    out = dict(port=[float(p.mean_distance_error_px), float(p.mean_feature_age_s),
+                     int(p.num_tracks)],
+               evo_tpu=[float(j.mean_distance_error_px), float(j.mean_feature_age_s),
+                        int(j.num_tracks)])
+    if per_track:
+        out["per_track"] = {int(k): float(v) for k, v in p.per_track_error.items()}
+    return out
+
+
+def gap_by_track(a: dict, b: dict, top: int = 8) -> dict:
+    """Where two runs' mean track errors part: the tracks of both with the
+    largest |error b - error a| (px), and the share of the mean's gap they
+    carry."""
+    common = sorted(set(a) & set(b))
+    diff = {t: b[t] - a[t] for t in common}
+    order = sorted(common, key=lambda t: -abs(diff[t]))
+    total = sum(diff.values()) / max(len(common), 1)
+    head = sum(diff[t] for t in order[:top]) / max(len(common), 1)
+    return dict(tracks=len(common), mean_gap_px=total, top=[(t, a[t], b[t]) for t in order[:top]],
+                top_share=head / total if total else None,
+                apart_1e_3=sum(abs(v) > 1e-3 for v in diff.values()),
+                apart_0_1=sum(abs(v) > 0.1 for v in diff.values()))
 
 
 def trace_both(ds_dir: str, work: str) -> tuple[Trace, dict, Trace, dict]:
@@ -513,14 +657,17 @@ def trace_both(ds_dir: str, work: str) -> tuple[Trace, dict, Trace, dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out", help="JSON report path")
-    ap.add_argument("--duration", type=float, default=6.0)
+    ap.add_argument("--scene", choices=tuple(ROWS), default="shapes")
+    ap.add_argument("--duration", type=float, default=None,
+                    help="seconds of the scene (default: its row's, 6 or 12)")
     ap.add_argument("--control", nargs="*", default=[], choices=("centre", "budget"))
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as work:
-        ds_dir = write_scene(work, args.duration)
+        ds_dir = write_scene(work, args.duration, args.scene)
         jt, jtraj, pt, ptraj = trace_both(ds_dir, work)
-        report = dict(duration_s=args.duration, steps=[len(jt.steps), len(pt.steps)],
+        report = dict(scene=args.scene, duration_s=args.duration,
+                      steps=[len(jt.steps), len(pt.steps)],
                       first=first_differences(jt, pt))
         js = solves(jt)
         for name in ("first_int", "first_float", "first_output"):
@@ -529,10 +676,17 @@ def main(argv=None) -> int:
                 report[f"replay_{name}"] = replay_through_port(
                     jt, js[(f["track"], f["ordinal"])])
         report["replay_all"] = replay_summary(jt)
-        report["scores"] = dict(evo_tpu=score(jtraj, ds_dir), port=score(ptraj, ds_dir))
+        # where the rows part, track by track (the port's run, then each
+        # control, against `evo_tpu`'s)
+        js_, ps_ = score(jtraj, ds_dir, True), score(ptraj, ds_dir, True)
+        j_tracks = js_.pop("per_track")
+        report["gap_by_track"] = gap_by_track(j_tracks, ps_.pop("per_track"))
+        report["scores"] = dict(evo_tpu=js_, port=ps_)
         for nudge in args.control:
             ctraj = run_jax(ds_dir, os.path.join(work, nudge), control=nudge)
-            report[f"control_{nudge}"] = score(ctraj, ds_dir)
+            cs = score(ctraj, ds_dir, True)
+            cs["gap_by_track"] = gap_by_track(j_tracks, cs.pop("per_track"))
+            report[f"control_{nudge}"] = cs
     print(json.dumps(report, indent=1, default=str))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
