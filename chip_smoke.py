@@ -6,10 +6,10 @@ Phases (any failure raises and exits non-zero):
 1. environment: a CUDA card is required; prints the torch and CUDA versions
    and the card's name and power limit;
 2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc
-   (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu), one nvcc for each
-   source (and one for each clock build: the alignment kernel's and
-   compensation's two), all started together, and prints ptxas's register,
-   spill and shared-memory lines;
+   (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu, localize.cu,
+   ba_solve.cu), one nvcc for each source (and one for each clock build: the
+   alignment kernel's and compensation's two), all started together, and
+   prints ptxas's register, spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
    re-budget) against its plain version `align.solve_step_ref` on the
@@ -52,7 +52,23 @@ Phases (any failure raises and exits non-zero):
    queued on the card, so the time is the device's and not the host's; the
    wrapper's host time per call, the bound, the floor (an empty kernel), the
    plain version and, where one PyTorch call computes the same function, that
-   call are printed beside it;
+   call are printed beside it. Last, VO's two kernels (`run/time_vo.py`) at
+   the run's shapes: the scene of phase 5 is simulated here, the synchronous
+   standard mode runs its 24 frames once with every localization's and BA's
+   arguments recorded, and `kernels.localize` (one launch: unprojection, P3P
+   RANSAC over the front end's minimal samples, the LM refinement, the
+   reselection) and `kernels.ba_solve` (one launch: the whole windowed BA,
+   F 21) are held on the largest recorded call of each to their plain
+   versions: `localize_camera_fused_ref` on the same inputs on the CPU
+   (`time_vo.localize_agreement`: the candidates' validity equal, each
+   candidate 1e-4 relative but the ill-conditioned ones, counts equal up to
+   those and residuals at the threshold, the same best candidate, the
+   refined pose no farther from its float64 witness than twice the plain
+   version's distance, never less than 1e-4) and `ba_solve_ref` on the card
+   (`time_vo.check_ba`: costs 1e-5 relative, the same trips unless a
+   decision lies within 2 % of tol of its threshold, poses and landmarks
+   held to the float64 witness the same way); each timed as above, with
+   `cholesky_ex` + `cholesky_solve` on the BA's reduced system beside it;
 4. sweep: the forward tile kernel with 1, 2, 4 and 8 private copies of the
    image at 256 threads (8 copies: one per warp, no atomics), and at 384 and
    512 threads; the backward at 256 and 512 threads;
@@ -72,8 +88,10 @@ Phases (any failure raises and exits non-zero):
    VO, compensation on, default parameters, no device given), first on the
    synchronous drive (`pipelined=False`). Every pose of vo_trajectory.txt
    must be finite, at least 6 keyframes accepted, the VO solves found on the
-   card, compensation on kernels A and B, and the Sim(3)-aligned ATE over the
-   scene's depth under its limit. The first 12 frames are run once more with
+   card, each localization one launch of `kernels.localize` and each BA one
+   of `kernels.ba_solve` (launches equal to the front end's calls, no plain
+   version on a card tensor), compensation on kernels A and B, and the
+   Sim(3)-aligned ATE over the scene's depth under its limit. The first 12 frames are run once more with
    the VO geometry on the host CPU, and the `vo` stage seconds of both are
    printed side by side. Before it, the batched SVDs of the two RANSACs are
    timed with each cuSOLVER method. Then VO's repeatability: the 12-frame
@@ -90,7 +108,9 @@ Phases (any failure raises and exits non-zero):
    positions within 1e-3 px, the last motion field within 1e-4 px/ms, as many
    compensation windows, keyframes within 1, the ATE under its limit, VO on
    the card, compensation's kernels (and the count splat) launched from the
-   evo-comp thread on another stream than the default, both workers ended
+   evo-comp thread on another stream than the default, VO's kernels (on the
+   default drive) from the evo-vo thread on one stream of its own (inline:
+   from the main thread), both workers ended
    and nothing left in flight
    after `finish()`. Wall and stage seconds of all four runs go into one
    `pipelined path` JSON line, beside the largest and the sum of the
@@ -197,6 +217,11 @@ COMP_TILE_SOURCE = "evo_tpu_torch/csrc/comp_tile.cu"
 COMP_TILE_REPLACES = "evo_tpu/tracker/compensate.py:138"  # tile_residual under jacfwd (:207)
 COMP_STEP_SOURCE = "evo_tpu_torch/csrc/comp_step.cu"
 COMP_STEP_REPLACES = "evo_tpu/tracker/compensate.py:227"  # solve_motion_field's step
+LOCALIZE_SOURCE = "evo_tpu_torch/csrc/localize.cu"
+LOCALIZE_REPLACES = "evo_tpu/solve/ransac.py:223"  # localize_camera_fused, one jitted program
+BA_SOURCE = "evo_tpu_torch/csrc/ba_solve.cu"
+BA_REPLACES = "evo_tpu/vo/ba.py:98"  # ba_solve, a lax.while_loop of LM trips
+VO_LAUNCHES = ("evo_localize", "evo_ba_solve")
 # compensation's kernels' names as `nvcc.launch` sees them, and the splat's
 COMP_LAUNCHES = ("evo_comp_tile", "evo_comp_lm_step", "evo_comp_solve", "evo_splat_", "evo_warp_")
 # operations of the alignment kernel, counted from its code: a linearization
@@ -615,12 +640,13 @@ def phase_sweep(splat, timer, dev, label: str) -> None:
 
 def counts(splat) -> dict:
     """Launches of every kernel since the last `reset_counts` (comp_step:
-    both of its entries; comp_step_solve: the solve entry alone), and
-    compensation's host reads of its stop flag."""
-    from evo_tpu_torch.kernels import align_step, comp_step, comp_tile
+    both of its entries; comp_step_solve: the solve entry alone; localize and
+    ba_solve: VO's), and compensation's host reads of its stop flag."""
+    from evo_tpu_torch.kernels import align_step, ba_solve, comp_step, comp_tile, localize
     from evo_tpu_torch.tracker import compensate
 
     return {"splat_fwd": splat.launches_fwd, "splat_bwd": splat.launches_bwd,
+            "localize": localize.launches_localize, "ba_solve": ba_solve.launches_ba,
             "warp_splat_fwd": splat.launches_warp_fwd,
             "warp_splat_bwd": splat.launches_warp_bwd,
             "align_step": align_step.launches_align,
@@ -631,10 +657,10 @@ def counts(splat) -> dict:
 
 
 def reset_counts(splat) -> None:
-    from evo_tpu_torch.kernels import align_step, comp_step, comp_tile
+    from evo_tpu_torch.kernels import align_step, ba_solve, comp_step, comp_tile, localize
     from evo_tpu_torch.tracker import compensate
 
-    for module in (splat, align_step, comp_step, comp_tile, compensate):
+    for module in (splat, align_step, comp_step, comp_tile, compensate, localize, ba_solve):
         module.reset_counts()
 
 
@@ -662,17 +688,58 @@ def check_window(comp, args, dev, what: str) -> None:
         raise AssertionError(f"{what}: count images differ in mass")
 
 
-def phase_main_path(splat, dev, label: str):
+def simulate(dev, label: str):
+    """The 3walls scene of every later phase, simulated on the card."""
     from evo_tpu_torch.io import sim
-    from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams
-    from evo_tpu_torch.tracker import compensate as comp
 
     t0 = time.perf_counter()
-    out = sim.EventCameraSimulator(sim.SimParams(**SCENE), device=dev).generate()
-    dataset = sim.to_dataset(out)
-    n_events = len(dataset.events)
-    print(f"simulated 3walls: {n_events} events, {dataset.num_images} frames "
+    dataset = sim.to_dataset(sim.EventCameraSimulator(sim.SimParams(**SCENE),
+                                                      device=dev).generate())
+    print(f"simulated 3walls: {len(dataset.events)} events, {dataset.num_images} frames "
           f"in {time.perf_counter() - t0:.2f} s ({label})", flush=True)
+    return dataset
+
+
+def phase_vo_kernels(timer, dev, label: str, dataset) -> list[dict]:
+    """VO's kernels against their plain versions on the card, on the largest
+    localization and BA of the synchronous standard mode's 24 frames
+    (`run/time_vo.py`'s `record_solves`, `check_kernels`)."""
+    from evo_tpu_torch.run import time_vo
+
+    t0 = time.perf_counter()
+    calls = time_vo.record_solves(dataset, 24, dev)
+    rows = time_vo.check_kernels(timer, dev, calls, REPS)
+    for r in rows:
+        extra = (f"of {r['valid_candidates']} valid candidates {r['candidates_apart']} beyond 1e-4 "
+                 f"({r['ill_conditioned']} ill-conditioned; the others within "
+                 f"{r['candidate_rel_err']:.2e}), best {r['best_idx']} off by "
+                 f"{r['best_err']:.2e}, refined pose from the float64 witness "
+                 f"{r['witness_err'][0]:.2e} (plain {r['witness_err'][1]:.2e}), "
+                 f"counts off {r['counts_off']} ({r['near_threshold']} residuals at the "
+                 f"threshold), {r['trips']} LM trips; kernel - plain by component "
+                 f"{[float(f'{x:.2e}') for x in r['kernel_minus_plain']]}, the refinement's "
+                 f"normal eigenvalues {[float(f'{x:.1e}') for x in r['normal_eigenvalues']]} "
+                 f"at inlier depths {[round(x, 1) for x in r['inlier_depths']]}"
+                 if r["kernel"] == "localize" else
+                 f"cost rel {r['cost_rel_err']:.2e}, cost0 rel {r['cost0_rel_err']:.2e}, trips "
+                 f"{r['trips']} (kernel, plain, float64 witness), decisions within 2 % of tol "
+                 f"{r['decision_ties']}, poses and landmarks from the witness "
+                 f"{r['witness_err'][0]:.2e} (plain {r['witness_err'][1]:.2e}); "
+                 f"{r['setup_ms'] * 1e3:.2f} us of each launch before its first trip, the "
+                 f"orders' sorts {r['orders_ms'] * 1e3:.2f} us; cholesky_ex + cholesky_solve on "
+                 f"its {r['system']} system {r['cholesky_library_ms'] * 1e3:.2f} us")
+        print(f"kernel {r['kernel']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} ({extra})  "
+              f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
+              f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})  "
+              f"plain {r['plain_ms'] * 1e3:.2f} us  library none ({label})", flush=True)
+    print(f"VO kernels recorded {len(calls['localize'])} localizations and {len(calls['ba'])} "
+          f"BAs, checked in {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows
+
+
+def phase_main_path(splat, dev, label: str, dataset):
+    from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams
+    from evo_tpu_torch.tracker import compensate as comp
 
     # the card's first solves pay one-time library set-up: warm up on a prefix
     with tempfile.TemporaryDirectory() as tmp:
@@ -798,25 +865,44 @@ def check_same_tracks(ref: dict, run: dict, what: str, fields: bool = True) -> d
 def run_standard(splat, dataset, params, max_frames=None) -> dict:
     """One run of the standard mode, no device given. Returns the evaluator,
     its wall seconds, launch counts, (kernel, thread, stream) of every launch
-    of compensation's and the splat's kernels, the rows of trajectory.txt
-    and vo_trajectory.txt, and what `finish()` left alive."""
+    of compensation's and the splat's kernels (`seen`) and of VO's
+    (`vo_seen`), the plain VO solves that ran on a card tensor, the rows of
+    trajectory.txt and vo_trajectory.txt, and what `finish()` left alive."""
     from evo_tpu_torch.kernels import nvcc
     from evo_tpu_torch.run.evaluator import Evaluator
 
-    seen = set()
+    from evo_tpu_torch.solve import ransac
+    from evo_tpu_torch.vo import ba
+
+    seen, vo_seen, plain_on_card = set(), set(), []
     inner = nvcc.launch
 
     def recording(fn, on, *args):
+        where = (fn.__name__, threading.current_thread().name,
+                 torch.cuda.current_stream(on.device).cuda_stream)
         if fn.__name__.startswith(COMP_LAUNCHES):
-            seen.add((fn.__name__, threading.current_thread().name,
-                      torch.cuda.current_stream(on.device).cuda_stream))
+            seen.add(where)
+        if fn.__name__.startswith(VO_LAUNCHES):
+            vo_seen.add(where)
         return inner(fn, on, *args)
+
+    plain = ((ransac, "localize_camera_fused_ref"), (ba, "ba_solve_ref"))
+    inner_plain = [getattr(m, n) for m, n in plain]
+
+    def watching(name, fn):
+        def call(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card.append(name)
+            return fn(*args, **kw)
+        return call
 
     with tempfile.TemporaryDirectory() as tmp:
         params.output_dir = tmp
         ev = Evaluator(dataset, params)
         reset_counts(splat)
         nvcc.launch = recording
+        for (m, n), fn in zip(plain, inner_plain):
+            setattr(m, n, watching(n, fn))
         try:
             t0 = time.perf_counter()
             ev.run(max_frames=max_frames)
@@ -824,6 +910,8 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
             wall = time.perf_counter() - t0
         finally:
             nvcc.launch = inner
+            for (m, n), fn in zip(plain, inner_plain):
+                setattr(m, n, fn)
         launches = counts(splat)
         paths = ev.finish()
         poses = np.loadtxt(paths["vo_trajectory"], ndmin=2)
@@ -833,7 +921,8 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
             or ev._comp_executor is not None
             or (ev._vo_queue is not None and not ev._vo_queue.empty())):
         raise AssertionError(f"finish() left work or workers behind: {left}")
-    return dict(ev=ev, wall=wall, launches=launches, seen=seen, poses=poses, traj=traj)
+    return dict(ev=ev, wall=wall, launches=launches, seen=seen, vo_seen=vo_seen,
+                plain_on_card=plain_on_card, poses=poses, traj=traj)
 
 
 def check_standard(run: dict, what: str) -> dict:
@@ -854,7 +943,7 @@ def check_standard(run: dict, what: str) -> dict:
         wall_s=run["wall"], rt_multiple=stream_s / run["wall"],
         stage_s=dict(ev.counters.times), solves=int(c["solves"]),
         compensation_windows=int(c["compensation_windows"]),
-        vo_stage_s=dict(vo.stage_s), keyframes=len(poses),
+        vo_stage_s=dict(vo.stage_s), vo_stage_calls=dict(vo.stage_calls), keyframes=len(poses),
         landmarks=len(vo.map.landmarks), ba_calls=len(iters),
         ba_mean_iterations=float(np.mean(iters)) if iters else None,
         ba_max_iterations=max(iters, default=None),
@@ -869,6 +958,15 @@ def check_standard(run: dict, what: str) -> dict:
         raise AssertionError(f"{what}: {len(poses)} keyframes accepted: no ATE exists below 6")
     if vo.solve_devices != {"cuda"} or not vo.intr.is_cuda:
         raise AssertionError(f"{what}: VO geometry ran on {vo.solve_devices}, not on the card")
+    # one launch a solve: each localization and each BA went through its kernel
+    calls = vo.stage_calls
+    if (launches["localize"] != calls["localize"] or launches["localize"] <= 0
+            or launches["ba_solve"] != calls["ba"] or calls["ba"] != len(vo.ba_log)
+            or launches["ba_solve"] <= 0 or run["plain_on_card"]):
+        raise AssertionError(f"{what}: VO's solves did not each launch their kernel: "
+                             f"launches {launches}, calls {dict(calls)}, BA log "
+                             f"{len(vo.ba_log)}, plain versions on the card "
+                             f"{run['plain_on_card']}")
     for name in ("splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"{what} never launched {name}")
@@ -897,10 +995,11 @@ def phase_standard_mode(splat, dataset, dev, label: str):
     sync = run_standard(splat, dataset, EvaluatorParams(pipelined=False))
     stats = check_standard(sync, "the synchronous standard mode")
     print(f"vo path, synchronous drive ({label}): " + json.dumps(stats), flush=True)
-    if ({st for _, _, st in sync["seen"]} != {torch.cuda.default_stream(dev).cuda_stream}
-            or any(t != "MainThread" for _, t, _ in sync["seen"])):
-        raise AssertionError(
-            f"the synchronous drive launched off its thread or stream: {sync['seen']}")
+    both = sync["seen"] | sync["vo_seen"]
+    if ({st for _, _, st in both} != {torch.cuda.default_stream(dev).cuda_stream}
+            or any(t != "MainThread" for _, t, _ in both)
+            or {k for k, _, _ in sync["vo_seen"]} != set(VO_LAUNCHES)):
+        raise AssertionError(f"the synchronous drive launched off its thread or stream: {both}")
 
     # the VO geometry on the host instead, over the first 12 frames of both:
     # which of the two should do it?
@@ -991,8 +1090,18 @@ def phase_pipelined(splat, dataset, dev, label: str, sync_stats: dict, sync: dic
                 or not any(k == "evo_comp_lm_step" for k, _, _ in r["seen"])):
             raise AssertionError(f"{name}: compensation was launched from {r['seen']}, not "
                                  "from the evo-comp thread on one stream of its own")
+        # VO's kernels: on the default drive from the evo-vo thread on one
+        # stream of its own, inline from the main thread
+        vo_threads = {t for _, t, _ in r["vo_seen"]}
+        vo_streams = {st for _, _, st in r["vo_seen"]}
         if name == "pipelined":
+            if (vo_threads != {"evo-vo"} or len(vo_streams) != 1 or default_stream in vo_streams
+                    or {k for k, _, _ in r["vo_seen"]} != set(VO_LAUNCHES)):
+                raise AssertionError(f"{name}: VO's kernels were launched from {r['vo_seen']}, "
+                                     "not from the evo-vo thread on one stream of its own")
             default_run = r
+        elif name == "pipelined_inline_vo" and vo_threads != {"MainThread"}:
+            raise AssertionError(f"{name}: VO's kernels were launched from {r['vo_seen']}")
     stages = sync_stats["stage_s"]
     out["synchronous_max_stage_s"] = max(stages.values())
     out["synchronous_sum_stage_s"] = sum(stages.values())
@@ -1777,7 +1886,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from evo_tpu_torch.kernels import align_step, comp_step, comp_tile, nvcc, splat
+    from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, localize, nvcc,
+                                       splat)
     from evo_tpu_torch.run.time_splat import Timer, card
 
     t_start = time.perf_counter()
@@ -1791,14 +1901,15 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = (splat._lib, align_step._lib, partial(align_step._lib, clocks=True), comp_tile._lib,
             partial(comp_tile._lib, clocks=True), comp_step._lib,
-            partial(comp_step._lib, clocks=True))
+            partial(comp_step._lib, clocks=True), localize._lib, ba_solve._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
-    print(f"built the splat, alignment and compensation kernels (and their clock builds) in "
+    print(f"built the splat, alignment, compensation and VO kernels (and the clock builds) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
-                 "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock"):
+                 "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock", "evo_localize",
+                 "evo_ba_solve"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -1807,10 +1918,12 @@ def main() -> int:
     rows = phase_kernels(splat, timer, dev, label)
     align_row = phase_align_step(timer, dev, label, rows[0]["floor_ms"])
     comp_rows = phase_comp_kernels(timer, dev, label, rows[0]["floor_ms"])
+    dataset = simulate(dev, label)
+    vo_rows = phase_vo_kernels(timer, dev, label, dataset)
     phase_sweep(splat, timer, dev, label)
     phase_svd_methods(timer, dev, label)
     del timer
-    stats, window, dataset, trajectories = phase_main_path(splat, dev, label)
+    stats, window, dataset, trajectories = phase_main_path(splat, dev, label, dataset)
     large = phase_large_tiles(splat, window, dev)
     phase_tracks_window(splat, trajectories, window, dev, label)
     vo_stats, sync, sync12 = phase_standard_mode(splat, dataset, dev, label)
@@ -1911,6 +2024,27 @@ def main() -> int:
             other_shapes={r["shape"]: {k: r[k] for k in (
                 "ms", "host_us", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "clock")} for r in mine if r is not at}))
+    # VO's kernels, each at the shape of the largest call of its kind in the
+    # standard mode's 24 frames; launches on every drive (the tracker
+    # experiment runs no VO)
+    for row, name, source, replaces in ((vo_rows[0], "localize", LOCALIZE_SOURCE,
+                                         LOCALIZE_REPLACES),
+                                        (vo_rows[1], "ba_solve", BA_SOURCE, BA_REPLACES)):
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=vo_stats["launches"][name],
+            launches_tracker_experiment=stats["launches"][name],
+            launches_pipelined=pipe_stats["pipelined"]["launches"][name],
+            launches_pipelined_12_frames={k: pipe_stats[k]["launches"][name] for k in (
+                "pipelined_inline_vo", "pipelined_host_policy")},
+            launches_temporal_batch=temporal_drive["launches"][name],
+            launches_mesh=meshed["a"]["launches"][name],
+            launches_mesh_gloo_ranks=[r["launches"][name] for r in meshed["b"]["ranks"]],
+            max_abs_err=row["max_abs_err"], shape=row["shape"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, host_us=row["host_us"],
+            **({"cholesky_library_ms": row["cholesky_library_ms"], "trips": row["trips"]}
+               if name == "ba_solve" else {"lm_trips": row["trips"]})))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,12 +23,13 @@ class CompileError(RuntimeError):
 
 
 def shared_library(name: str, sources: list[str], command: list[str],
-                   timeout: float = 600.0) -> tuple[str, str | None]:
+                   timeout: float = 600.0, headers: tuple[str, ...] = ()) -> tuple[str, str | None]:
     """Path of `lib<name>_<hash>.so`, compiled from `sources` (absolute
     paths) by `command + ["-o", out, *sources]` unless it already exists.
-    Returns (path, compiler stderr of a build made now, else None)."""
+    `headers` (absolute paths) are what the sources include: hashed, not
+    compiled. Returns (path, compiler stderr of a build made now, else None)."""
     digest = hashlib.sha256(" ".join(command).encode())
-    for p in sources:
+    for p in (*sources, *headers):
         with open(p, "rb") as f:
             digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")

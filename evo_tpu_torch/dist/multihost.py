@@ -145,10 +145,15 @@ def launch(worker, n_procs: int = 2, args: tuple = (), *, device=None,
             except queue.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if r not in out and p.exitcode not in (None, 0)]
-                if dead:
+                if not dead:
+                    continue
+                # a rank puts its report on the queue before it exits, so a
+                # dead rank's report may have arrived since the wait ended
+                try:
+                    rank, ok, payload = results.get(timeout=1.0)
+                except queue.Empty:
                     raise RuntimeError(f"rank {dead[0]} exited with code "
                                        f"{procs[dead[0]].exitcode} and no result") from None
-                continue
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{payload}")
             out[rank] = payload

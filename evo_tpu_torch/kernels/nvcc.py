@@ -39,17 +39,20 @@ def _nvcc() -> str:
 
 
 def load(name: str, sources: list[str], signatures: dict,
-         extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+         extra_flags: tuple[str, ...] = (), headers: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Return the loaded library built from `sources` (file names under
-    `csrc/`) with `FLAGS` and `extra_flags`, compiling it first if needed.
-    `signatures` maps each exported function to (argtypes, restype)."""
+    `csrc/`) with `FLAGS` and `extra_flags`, compiling it first if needed;
+    `headers` (file names under `csrc/`) are the ones the sources include,
+    so that an edited header builds anew. `signatures` maps each exported
+    function to (argtypes, restype)."""
     with _lock:  # one build of each library; two libraries build side by side
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _loaded:
             return _loaded[name]
         paths = [os.path.join(CSRC_DIR, s) for s in sources]
-        so, log = build.shared_library(name, paths, [_nvcc(), *FLAGS, *extra_flags])
+        so, log = build.shared_library(name, paths, [_nvcc(), *FLAGS, *extra_flags],
+                                       headers=tuple(os.path.join(CSRC_DIR, h) for h in headers))
         if log is not None:
             build_logs[name] = log
         lib = ctypes.CDLL(so)

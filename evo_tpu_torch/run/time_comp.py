@@ -9,8 +9,9 @@ density, seed 3, as `chip_smoke.py` drives it) with the `evo_tpu_torch`
 package found under DIR (default: the tree this file is in): the tracker
 experiment, the standard mode on the synchronous drive and on the default
 drive, each after a short warm-up run. It prints one JSON line a mode: wall
-and stage seconds, compensation windows, and the launches and host reads of
-compensation where the tree counts them. Only names that every version of
+and stage seconds, compensation windows, the launches and host reads of
+compensation and VO's launches where the tree counts them, and in the
+standard mode VO's seconds by geometric stage (`vo_stage_s`). Only names that every version of
 the port with temporal batching has are used, so two trees can be compared
 in one call on one card: unpack the other commit into a directory
 `.gitignore` lists and run this file once per tree, in turns.
@@ -437,8 +438,9 @@ def simulate(dev):
 
 def run_mode(dataset, mode: str) -> dict:
     """One evaluator run of `mode` (tracker, sync, default) after a warm-up
-    run of three frames: wall and stage seconds, windows, and what the tree
-    counts of compensation's launches and host reads."""
+    run of three frames: wall and stage seconds, windows, what the tree
+    counts of compensation's and VO's launches and compensation's host
+    reads, and, in the standard mode, VO's seconds by geometric stage."""
     from evo_tpu_torch.kernels import splat
     from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams
     from evo_tpu_torch.tracker import compensate
@@ -448,7 +450,7 @@ def run_mode(dataset, mode: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         Evaluator(dataset, EvaluatorParams(**params, output_dir=tmp)).run(max_frames=3)
     counters = [splat]
-    for name in ("comp_tile", "comp_step"):
+    for name in ("comp_tile", "comp_step", "localize", "ba_solve"):
         try:
             counters.append(__import__(f"evo_tpu_torch.kernels.{name}", fromlist=[name]))
         except ImportError:
@@ -473,6 +475,11 @@ def run_mode(dataset, mode: str) -> dict:
     windows = int(c["compensation_windows"])
     out = dict(mode=mode, wall_s=wall, rt_multiple=c["frames"] / SCENE["fps"] / wall,
                stage_s=dict(ev.counters.times), compensation_windows=windows, counts=counts)
+    vo = getattr(ev, "vo", None)
+    if vo is not None and mode != "tracker":  # VO's stages, and its solves where counted
+        out["vo_stage_s"] = dict(vo.stage_s)
+        out["vo_stage_calls"] = dict(getattr(vo, "stage_calls", {}))
+        out["ba_iterations"] = int(sum(it for it, *_ in vo.ba_log))
     if "host_reads" in counts and windows:
         out["host_reads_per_window"] = counts["host_reads"] / windows
     return out

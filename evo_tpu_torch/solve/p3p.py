@@ -25,6 +25,13 @@ _N_BISECT = 24
 _N_NEWTON = 6
 
 
+def quartic_grid(dtype, device):
+    """The sign-change grid of the quartic's roots [_N_GRID] on (0, _V_MAX]:
+    geometric-ish, denser near small ratios."""
+    g = torch.linspace(0.0, 1.0, _N_GRID, dtype=dtype, device=device)
+    return 1e-4 + (_V_MAX - 1e-4) * g * g
+
+
 def _quartic_real_roots(coeffs):
     """Real positive roots of A4 v⁴ + A3 v³ + A2 v² + A1 v + A0 in
     (0, _V_MAX]; each coefficient [...]. Returns (roots [..., 4],
@@ -37,9 +44,7 @@ def _quartic_real_roots(coeffs):
     def fp(v):
         return ((4.0 * A4 * v + 3.0 * A3) * v + 2.0 * A2) * v + A1
 
-    # geometric-ish grid: denser near small ratios
-    g = torch.linspace(0.0, 1.0, _N_GRID, dtype=A4.dtype, device=A4.device)
-    grid = 1e-4 + (_V_MAX - 1e-4) * g * g
+    grid = quartic_grid(A4.dtype, A4.device)
     vals = f(grid)  # [..., N]
     sign_change = torch.signbit(vals[..., :-1]) != torch.signbit(vals[..., 1:])
     # the k-th bracket (smallest first) is where the running count of sign

@@ -62,27 +62,30 @@ class SegmentSum:
     Rows whose `keep` is False are left out of every sum (the BA's masked
     observations, whose weight is 0: padding that would otherwise make one
     slot's segment, and so one thread of the card's reduction, as long as
-    the padding). Leaving them out costs one host read, here.
+    the padding): they are sorted into one more slot, past the last, whose
+    sum is dropped, so that nothing is read back to the host.
 
-    Build it once per index array, outside a solver's loop; call it once per
-    value array. Float32 in, float32 sums out, as `index_add_`."""
+    `order` [O] and `starts` [n_out + 2] (slot s is order[starts[s]:
+    starts[s + 1]]) are the sums' order, which `kernels.ba_solve` sums in
+    too. Build it once per index array, outside a solver's loop; call it
+    once per value array. Float32 in, float32 sums out, as `index_add_`."""
 
     def __init__(self, idx, n_out: int, key=None, keep=None):
         idx = idx.long()
-        order = torch.arange(len(idx), device=idx.device)
         if keep is not None:
-            order = order[keep.bool()]
+            idx = torch.where(keep.bool(), idx, n_out)
+        order = torch.arange(len(idx), device=idx.device)
         if key is not None:
-            order = order[torch.argsort(key[order], stable=True)]
+            order = torch.argsort(key, stable=True)
         order = order[torch.argsort(idx[order], stable=True)]
-        self.order = order
-        # segment lengths from the sorted slots (no atomics, no host read)
-        edges = torch.arange(n_out + 1, device=idx.device)
-        self.lengths = torch.diff(torch.searchsorted(idx[order], edges))
+        self.order, self.n_out = order, n_out
+        # segment starts from the sorted slots (no atomics, no host read)
+        edges = torch.arange(n_out + 2, device=idx.device)
+        self.starts = torch.searchsorted(idx[order], edges)
 
     def __call__(self, vals):
-        return torch.segment_reduce(vals[self.order], "sum", lengths=self.lengths,
-                                    axis=0, unsafe=True, initial=0.0)
+        return torch.segment_reduce(vals[self.order], "sum", lengths=torch.diff(self.starts),
+                                    axis=0, unsafe=True, initial=0.0)[:self.n_out]
 
 
 def compensated_scatter_add(idx, vals, n_out: int, n_chunks: int = 32):

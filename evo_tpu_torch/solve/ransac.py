@@ -17,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from evo_tpu_torch.core import camera, lie
+from evo_tpu_torch.kernels import localize as klocalize
 from evo_tpu_torch.solve import epipolar, p3p
 
 
@@ -162,7 +163,23 @@ def localize_camera_fused(intr, pix, points, n_valid: int, valid_mask, threshold
                           num_hypotheses: int = 128, generator=None, indices=None):
     """The whole 2D-3D localization stage: unproject the padded pixel
     observations, P3P RANSAC, nonlinear refinement on the inliers, and
-    inlier reselection. Returns (pose_w_c [7], inliers [N])."""
+    inlier reselection. Returns (pose_w_c [7], inliers [N]). On the card one
+    launch of the CUDA kernel `kernels.localize`; on the CPU
+    `localize_camera_fused_ref`."""
+    if pix.device.type == "cuda":
+        if indices is None:
+            indices = sample_indices(generator, num_hypotheses, 3, n_valid, pix.shape[0])
+        out = klocalize.localize(intr, pix, points, valid_mask, threshold, indices)
+        return out.pose, out.inliers
+    return localize_camera_fused_ref(intr, pix, points, n_valid, valid_mask, threshold,
+                                     num_hypotheses=num_hypotheses, generator=generator,
+                                     indices=indices)
+
+
+def localize_camera_fused_ref(intr, pix, points, n_valid: int, valid_mask, threshold, *,
+                              num_hypotheses: int = 128, generator=None, indices=None):
+    """`localize_camera_fused` in plain PyTorch (the kernel's plain version):
+    the refinement's Jacobian by forward-mode autodiff."""
     bearings = camera.unproject(intr, pix)
     pose, res = absolute_pose_ransac(
         bearings, points, n_valid, num_hypotheses=num_hypotheses,

@@ -10,8 +10,11 @@ analytic; the normal equations are assembled by scatter-adds into dense
 per-frame and per-landmark blocks (`observation_sums`: summed in one order on
 every device, so the card gives the same bits from run to run); the
 landmark block is eliminated in closed form (batched 3x3 inverses), and the
-reduced camera system ([6F, 6F], F <= 21) is solved densely by Cholesky. The
-LM loop is a Python loop that reads one flag per iteration.
+reduced camera system ([6F, 6F], F <= 21) is solved densely by Cholesky.
+
+`ba_solve` runs the whole solve as one launch of `kernels.ba_solve` (CUDA)
+on the card, and `ba_solve_ref`, the plain version, on the CPU: there the LM
+loop is a Python loop that reads one flag per iteration.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import functools
 import torch
 
 from evo_tpu_torch.core import camera, lie
+from evo_tpu_torch.kernels import ba_solve as kba
 from evo_tpu_torch.solve.lm import huber_weights
 from evo_tpu_torch.solve.precision import SegmentSum, compensated_scatter_add
 
@@ -54,21 +58,34 @@ def _obs_linearize(pose, lm, intr, p2d):
     return r, Jp, Jl
 
 
+def observation_orders(obs_frame, obs_lm, F: int, L: int, compensated: bool = False,
+                       obs_mask=None):
+    """The orders in which the normal equations' three slot sums (by frame,
+    by landmark, by (landmark, frame) pair) add observations obs_frame,
+    obs_lm [O], as `SegmentSum`s: by slot and then by (landmark, frame)
+    pair, which is the order the front end lists observations in, with the
+    observations whose `obs_mask` is False (weight 0) left out; with
+    `compensated`, by slot and index over every row, the order of
+    `compensated_scatter_add` within each of its chunks."""
+    obs_frame, obs_lm = obs_frame.long(), obs_lm.long()
+    pair = obs_lm * F + obs_frame
+    key, keep = (None, None) if compensated else (pair, obs_mask)
+    return [SegmentSum(i, n, key=key, keep=keep)
+            for i, n in ((obs_frame, F), (obs_lm, L), (pair, L * F))]
+
+
 def observation_sums(obs_frame, obs_lm, F: int, L: int, compensated: bool = False,
                      obs_mask=None):
     """The three scatter-adds of the normal equations (by frame, by
     landmark, by (landmark, frame) pair) for observations obs_frame, obs_lm
-    [O]. Each sums a slot's observations in the order of their (landmark,
-    frame) pair, which is the order the front end lists them in, so the sums
-    are `index_add_`'s on the CPU and the same on every run on the card.
-    Observations whose `obs_mask` is False (weight 0) are left out.
-    `compensated` takes the two-float chunked sums instead, over every row."""
-    obs_frame, obs_lm = obs_frame.long(), obs_lm.long()
-    pair = obs_lm * F + obs_frame
-    slots = ((obs_frame, F), (obs_lm, L), (pair, L * F))
+    [O]: `observation_orders`' `SegmentSum`s, which are `index_add_`'s sums
+    on the CPU and the same on every run on the card; with `compensated`
+    the two-float chunked sums instead, over every row."""
     if compensated:
-        return [functools.partial(compensated_scatter_add, i, n_out=n) for i, n in slots]
-    return [SegmentSum(i, n, key=pair, keep=obs_mask) for i, n in slots]
+        pair = obs_lm.long() * F + obs_frame.long()
+        return [functools.partial(compensated_scatter_add, i, n_out=n)
+                for i, n in ((obs_frame.long(), F), (obs_lm.long(), L), (pair, L * F))]
+    return observation_orders(obs_frame, obs_lm, F, L, False, obs_mask)
 
 
 def normal_equations(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, wmask,
@@ -96,7 +113,65 @@ def normal_equations(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, wmask,
             by_lm((Jl.transpose(1, 2) @ wr[..., None])[..., 0]))
 
 
-def ba_solve(
+def reduced_system(Hpp, Hll, A, bp, bl, lam, pin_pose, pin_lm):
+    """The reduced camera system of the normal-equation blocks
+    (`normal_equations`) damped by `lam` (Marquardt diagonal scaling) and
+    pinned (`pin_pose` [F, 6, 6], `pin_lm` [L, 3, 3]: identity blocks that
+    keep fixed poses and unobserved landmarks invertible): (S [6F, 6F],
+    v [F, 6], Hll⁻¹ [L, 3, 3], the inverses' `inv_ex` info [L])."""
+    F = Hpp.shape[0]
+    frames = torch.arange(F, device=Hpp.device)
+    dpp = torch.diagonal(Hpp, dim1=1, dim2=2).clamp_min(1e-8)
+    dll = torch.diagonal(Hll, dim1=1, dim2=2).clamp_min(1e-8)
+    Hpp = Hpp + lam * torch.diag_embed(dpp) + pin_pose
+    Hll = Hll + lam * torch.diag_embed(dll) + pin_lm
+
+    Hll_inv, inv_info = torch.linalg.inv_ex(Hll)  # [L, 3, 3]
+    T = torch.einsum("lfij,ljk->lfik", A, Hll_inv)  # [L, F, 6, 3]
+    # reduced camera system S = Hpp − Σ_l T_l A_lᵀ ; v = bp − Σ_l T_l bl_l
+    S = -torch.einsum("lfij,lgkj->fgik", T, A)  # [F, F, 6, 6]
+    S[frames, frames] += Hpp
+    S = S.permute(0, 2, 1, 3).reshape(6 * F, 6 * F)
+    v = bp - torch.einsum("lfij,lj->fi", T, bl)  # [F, 6]
+    return S, v, Hll_inv, inv_info
+
+
+def decide(cost, cost_new, tol: float):
+    """The accept and stop tests of a trip from the current and the
+    candidate costs, each a pair (float32, float64) of `ba_solve_ref`'s
+    evaluation: accept if the float64 cost falls, stop if it falls by less
+    than `tol` of itself. The float32 cost is good to ~1e-6 of itself only
+    (each residual is a difference of pixel coordinates of ~100 px, good to
+    ~1e-5 px), so tests within that of their thresholds would go either way
+    in float32, and differently on the card and on the CPU. One float32 case
+    is kept: a state whose float32 cost is zero, every observation
+    reproduced exactly, is final, as in `evo_tpu` (nothing lowers a zero
+    cost, so every step is rejected until the damping passes 1e6); the
+    float64 cost would still see gains of the pixels' own rounding there.
+    Returns (accept, stop, the relative decrease)."""
+    (c32, c64), n64 = cost, cost_new[1]
+    rel = (c64 - n64) / c64.clamp_min(1e-12)
+    return torch.isfinite(n64) & (n64 < c64) & (c32 > 0), rel < tol, rel
+
+
+def ba_solve(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, obs_mask, pose_fixed, *,
+             num_iters: int = MAX_ITERS, huber: float = HUBER, compensated: bool = False,
+             tol: float = 1e-6):
+    """Run the windowed BA (arguments and results as `ba_solve_ref`'s): on
+    the card one launch of the CUDA kernel `kernels.ba_solve`, which sums in
+    `observation_orders`' orders, its iteration count a 0-dim tensor; on
+    the CPU `ba_solve_ref`."""
+    if poses.device.type == "cuda":
+        orders = observation_orders(obs_frame, obs_lm, poses.shape[0], landmarks.shape[0],
+                                    compensated, obs_mask)
+        return kba.ba_solve(poses, landmarks, intr, obs_frame.long(), obs_lm.long(), obs_p2d,
+                            obs_mask.bool(), pose_fixed.bool(), orders, num_iters=num_iters,
+                            huber=huber, compensated=compensated, tol=tol)
+    return ba_solve_ref(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, obs_mask, pose_fixed,
+                        num_iters=num_iters, huber=huber, compensated=compensated, tol=tol)
+
+
+def ba_solve_ref(
     poses,
     landmarks,
     intr,
@@ -110,8 +185,9 @@ def ba_solve(
     huber: float = HUBER,
     compensated: bool = False,
     tol: float = 1e-6,
+    trace: list | None = None,
 ):
-    """Run the windowed BA.
+    """Run the windowed BA in plain PyTorch (the kernel's plain version).
 
     poses [F, 7] (T_w_c), landmarks [L, 3], intr [9] (constant),
     obs_frame / obs_lm [O] integer indices, obs_p2d [O, 2], obs_mask [O]
@@ -119,9 +195,14 @@ def ba_solve(
     padding frames).
 
     `compensated=True` assembles the normal-equation blocks with two-float
-    chunked accumulation (`solve.precision`). `tol` is the function
-    tolerance: an accepted step whose relative cost decrease falls below it
-    ends the solve, as does a damping grown past 1e6.
+    chunked accumulation (`solve.precision`). The Huber cost is evaluated in
+    float64 and in the poses' dtype (`decide` makes each accept and stop
+    test on them); the float64 cost is returned, in the poses' dtype. With
+    `trace` (a list), each trip appends its decision's numbers (the float64
+    cost and candidate cost, accept, rel_decrease, lam) as floats: the
+    tests read where a decision lay. `tol` is the function tolerance: an
+    accepted step whose relative cost decrease falls below it ends the
+    solve, as does a damping grown past 1e6.
 
     The scatter-adds sum in one order on every device (`observation_sums`),
     so the card's result is the same on every run.
@@ -136,14 +217,18 @@ def ba_solve(
     wmask = obs_mask.to(dtype)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    frames = torch.arange(F, device=dev)
 
-    def robust_cost(poses, landmarks):
-        r = _reproj_residual(poses[obs_frame], landmarks[obs_lm], intr, obs_p2d)
+    def robust_cost(poses, landmarks, dt):
+        r = _reproj_residual(poses.to(dt)[obs_frame], landmarks.to(dt)[obs_lm], intr.to(dt),
+                             obs_p2d.to(dt))
         s = (r * r).sum(-1)
         n = torch.sqrt(s + 1e-12)
         rho = torch.where(n <= huber, s, 2.0 * huber * n - huber * huber)
-        return (rho * wmask).sum()
+        return (rho * wmask.to(dt)).sum()
+
+    def costs(poses, landmarks):
+        """The Huber cost in the poses' dtype and in float64."""
+        return robust_cost(poses, landmarks, dtype), robust_cost(poses, landmarks, torch.float64)
 
     sums = observation_sums(obs_frame, obs_lm, F, L, compensated, obs_mask)
     # padding landmarks stay put
@@ -155,20 +240,7 @@ def ba_solve(
         Hpp, Hll, A, bp, bl = normal_equations(
             poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, wmask, pose_fixed, sums,
             huber)
-        # damping (Marquardt diagonal scaling); fixed poses and unobserved
-        # landmarks are kept invertible and pinned
-        dpp = torch.diagonal(Hpp, dim1=1, dim2=2).clamp_min(1e-8)
-        dll = torch.diagonal(Hll, dim1=1, dim2=2).clamp_min(1e-8)
-        Hpp = Hpp + lam * torch.diag_embed(dpp) + pin_pose
-        Hll = Hll + lam * torch.diag_embed(dll) + pin_lm
-
-        Hll_inv, inv_info = torch.linalg.inv_ex(Hll)  # [L, 3, 3]
-        T = torch.einsum("lfij,ljk->lfik", A, Hll_inv)  # [L, F, 6, 3]
-        # reduced camera system S = Hpp − Σ_l T_l A_lᵀ ; v = bp − Σ_l T_l bl_l
-        S = -torch.einsum("lfij,lgkj->fgik", T, A)  # [F, F, 6, 6]
-        S[frames, frames] += Hpp
-        S = S.permute(0, 2, 1, 3).reshape(6 * F, 6 * F)
-        v = bp - torch.einsum("lfij,lj->fi", T, bl)  # [F, 6]
+        S, v, Hll_inv, inv_info = reduced_system(Hpp, Hll, A, bp, bl, lam, pin_pose, pin_lm)
         # a reduced system that is not positive definite makes the step bad
         Lc, chol_info = torch.linalg.cholesky_ex(S)
         dp = torch.cholesky_solve(-v.reshape(6 * F, 1), Lc).reshape(F, 6)
@@ -181,17 +253,21 @@ def ba_solve(
 
         poses_new = torch.where(pose_fixed[:, None], poses, lie.se3_retract(poses, dp))
         lms_new = landmarks + dl
-        cost_new = robust_cost(poses_new, lms_new)
-        accept = torch.isfinite(cost_new) & (cost_new < cost) & ~bad
-        rel_decrease = (cost - cost_new) / cost.clamp_min(1e-12)
-        done = (accept & (rel_decrease < tol)) | (lam > 1e6)
+        cost_new = costs(poses_new, lms_new)
+        accept, stop, rel_decrease = decide(cost, cost_new, tol)
+        accept = accept & ~bad
+        done = (accept & stop) | (lam > 1e6)
+        if trace is not None:
+            trace.append(dict(cost=float(cost[1]), cost_new=float(cost_new[1]),
+                              accept=bool(accept), rel_decrease=float(rel_decrease),
+                              lam=float(lam)))
         poses = torch.where(accept, poses_new, poses)
         landmarks = torch.where(accept, lms_new, landmarks)
         lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-10, 1e8)
-        cost = torch.where(accept, cost_new, cost)
+        cost = tuple(torch.where(accept, n, c) for c, n in zip(cost, cost_new))
         return poses, landmarks, lam, cost, done
 
-    cost0 = robust_cost(poses, landmarks)
+    cost0 = costs(poses, landmarks)
     cost = cost0
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
     n_it = 0
@@ -200,4 +276,4 @@ def ba_solve(
         n_it += 1
         if bool(done):  # the loop's one host read per iteration
             break
-    return poses, landmarks, cost, cost0, n_it
+    return poses, landmarks, cost[1].to(dtype), cost0[1].to(dtype), n_it

@@ -111,6 +111,8 @@ class VisualOdometryFrontEnd:
         # wall seconds per geometric stage; each stage ends by pulling its
         # result to the host, so the device's work is inside
         self.stage_s: collections.defaultdict = collections.defaultdict(float)
+        # calls per geometric stage (a localization or a BA is one solve)
+        self.stage_calls: collections.defaultdict = collections.defaultdict(int)
 
     # ------------------------------------------------------------------
     def set_ground_truth(self, t_us: np.ndarray, poses: np.ndarray) -> None:
@@ -167,6 +169,7 @@ class VisualOdometryFrontEnd:
     @contextlib.contextmanager
     def _timed(self, stage: str):
         t0 = time.perf_counter()
+        self.stage_calls[stage] += 1
         try:
             yield
         finally:

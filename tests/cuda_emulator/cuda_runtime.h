@@ -1,8 +1,10 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile a CUDA source of
 // the package and run its kernels on the CPU, for tests without a card
-// (`tests/test_torch_align_emulated.py`, `tests/test_torch_comp_emulated.py`).
+// (`tests/test_torch_align_emulated.py`, `tests/test_torch_comp_emulated.py`,
+// `tests/test_torch_vo_emulated.py`).
 // It is not a CUDA implementation: it covers what `evo_tpu_torch/csrc/`'s
-// `align_step.cu`, `comp_tile.cu` and `comp_step.cu` use, and no more.
+// `align_step.cu`, `comp_tile.cu`, `comp_step.cu`, `localize.cu` and
+// `ba_solve.cu` use, and no more.
 //
 // A launch runs the grid's blocks one after another; each block runs as
 // one std::thread for each thread of the block. `__shared__` variables are function statics, so
@@ -62,7 +64,7 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 namespace evo_emu {
 
-inline thread_local dim3 thread_idx, block_idx;
+inline thread_local dim3 thread_idx, block_idx, block_dim;
 
 struct Block {
   explicit Block(int threads)
@@ -120,6 +122,7 @@ void launch(dim3 grid, dim3 threads, size_t smem, cudaStream_t, F&& body) {
       pool.emplace_back([&, t, b] {
         thread_idx = dim3(t);
         block_idx = dim3(b);
+        block_dim = threads;
         body();
       });
     for (auto& th : pool) th.join();
@@ -133,6 +136,7 @@ inline float* dynamic_smem() { return block->dynamic.data(); }
 
 #define threadIdx evo_emu::thread_idx
 #define blockIdx evo_emu::block_idx
+#define blockDim evo_emu::block_dim
 
 inline void __syncthreads() { evo_emu::block->sync.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {

@@ -36,6 +36,10 @@ positions atol 0.1, the last motion field atol 5e-3, vo_trajectory atol
 The checkpoint's table: bool and integer fields exact, float fields atol
 1e-3 (the centres' bar)."""
 
+import multiprocessing
+import operator
+import queue
+import time
 import types
 from functools import partial
 
@@ -355,6 +359,48 @@ def test_launcher_defaults_to_the_card(monkeypatch):
 
 def test_launcher_raises_when_a_rank_fails():
     with pytest.raises(RuntimeError, match="rank 1 fails"):
+        multihost.launch(torch_dist_ranks.fail_on_rank_one, 2, device="cpu",
+                         timeout_s=120.0)
+
+
+class _LateReports:
+    """The launcher's result queue, whose first `get` holds back every report
+    up to a failed rank's, waits until that rank has exited, and then times
+    out: the order in which a loaded host can deliver a failure. Later
+    `get`s hand the held reports over first. The ranks get the queue itself."""
+
+    def __init__(self, q):
+        self._q, self._held, self._first = q, [], True
+
+    def get(self, timeout=None):
+        if self._first:
+            self._first = False
+            while not self._held or self._held[-1][1]:
+                self._held.append(self._q.get(timeout=60.0))
+            name = f"evo-rank-{self._held[-1][0]}"
+            while any(p.name == name for p in multiprocessing.active_children()):
+                time.sleep(0.05)
+            raise queue.Empty
+        if self._held:
+            return self._held.pop(0)
+        return self._q.get(timeout=timeout)
+
+    def __reduce__(self):  # a rank unpickles the queue itself
+        return operator.itemgetter(0), ([self._q],)
+
+    def __getattr__(self, name):
+        return getattr(self._q, name)
+
+
+def test_launcher_reads_a_failed_ranks_report_after_its_exit(monkeypatch):
+    """A rank reports its traceback and exits before the launcher's wait on
+    the queue ends empty: the launcher still raises with the traceback, not
+    with "exited ... and no result"."""
+    spawn = multihost.mp.get_context("spawn")
+    ctx = types.SimpleNamespace(Process=spawn.Process,
+                                Queue=lambda: _LateReports(spawn.Queue()))
+    monkeypatch.setattr(multihost.mp, "get_context", lambda method: ctx)
+    with pytest.raises(RuntimeError, match="rank 1 failed:(.|\n)*rank 1 fails"):
         multihost.launch(torch_dist_ranks.fail_on_rank_one, 2, device="cpu",
                          timeout_s=120.0)
 

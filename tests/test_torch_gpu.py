@@ -14,7 +14,10 @@ together bit for bit as each alone; compensation's kernels to the bars of
 `evo_tpu_torch/run/time_comp.py`; VO keyframe poses within
 1e-3 between the card and the CPU on the same RANSAC draws, keyframe by
 keyframe from one state (the card's scatter-adds and SVDs sum in another
-order), and within 1e-3 of the trajectory's extent over a free run."""
+order), and within 1e-3 of the trajectory's extent over a free run; VO's
+kernels (`localize`, `ba_solve`) to the bars of
+`evo_tpu_torch/run/time_vo.py`'s checks, bit for bit from call to call and
+beside each other, one launch a solve."""
 
 import numpy as np
 import pytest
@@ -817,3 +820,120 @@ def test_window_scan_on_card_does_not_depend_on_the_block(cuda_device, monkeypat
                            getattr(full, name)), name
     for name, v in log.items():
         assert torch.equal(torch.cat([h[1][name] for h in halves], 1), v), name
+
+
+# -- VO's kernels: localize and ba_solve ----------------------------------------
+class _Once:
+    """A timer that runs each function once and times nothing: the checks of
+    `run/time_vo.py` without their times."""
+
+    @staticmethod
+    def device_ms(fn, reps):
+        fn()
+        return 0.0
+
+    host_us = device_ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_localize_kernel_matches_plain_on_card(cuda_device, seed):
+    """`kernels.localize` against `localize_camera_fused_ref` on the card,
+    under `run.time_vo.check_localize`'s bars (those of
+    tests/test_torch_vo_emulated.py)."""
+    import torch_vo_problems as problems
+
+    from evo_tpu_torch.run import time_vo
+
+    intr, pix, pts, n, valid, idx = problems.localize_problem(seed)
+    row = time_vo.check_localize(_Once(), cuda_device, (
+        [intr, pix, pts, n, valid, problems.THRESHOLD], dict(num_hypotheses=128, indices=idx)))
+    assert row["trips"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compensated", [False, True])
+def test_ba_kernel_matches_plain_on_card(cuda_device, compensated):
+    """`kernels.ba_solve` against `ba_solve_ref` on the card, under
+    `run.time_vo.check_ba`'s bars, and, on this well-conditioned window,
+    those of tests/test_torch_vo_emulated.py: poses and landmarks within
+    1e-4 of the plain version's (1e-3 where a tie parts the trips)."""
+    import torch_vo_problems as problems
+
+    from evo_tpu_torch.run import time_vo
+
+    row = time_vo.check_ba(_Once(), cuda_device, (problems.ba_problem(), dict(
+        num_iters=50, huber=0.8, compensated=compensated, tol=1e-5)))
+    assert row["trips"][0] >= 2
+    assert row["max_abs_err"] <= (1e-4 if row["trips"][0] == row["trips"][1] else 1e-3), row
+
+
+@pytest.mark.gpu
+def test_vo_kernels_repeat_their_bits_beside_each_other_on_card(cuda_device):
+    """Each kernel twice alone, then both at once on two streams: the same
+    bits every time."""
+    import torch_vo_problems as problems
+
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import localize as kloc
+    from evo_tpu_torch.vo import ba
+
+    loc = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+           for a in problems.localize_problem(0)]
+    intr, pix, pts, _, valid, idx = loc
+    bargs = [a.to(cuda_device) for a in problems.ba_problem()]
+    bargs.append(ba.observation_orders(bargs[3], bargs[4], bargs[0].shape[0], bargs[1].shape[0],
+                                       False, bargs[6]))
+    kw = dict(num_iters=50, huber=0.8, compensated=False, tol=1e-5)
+
+    def both():
+        return kloc.localize(intr, pix, pts, valid, problems.THRESHOLD, idx), \
+            kba.ba_solve(*bargs, **kw)
+
+    (l1, b1), (l2, b2) = both(), both()
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(streams[0]):
+        l3 = kloc.localize(intr, pix, pts, valid, problems.THRESHOLD, idx)
+    with torch.cuda.stream(streams[1]):
+        b3 = kba.ba_solve(*bargs, **kw)
+    torch.cuda.synchronize()
+    for lo in (l2, l3):
+        for f in ("pose", "inliers", "candidates", "counts", "best_idx"):
+            assert torch.equal(getattr(lo, f), getattr(l1, f)), f
+    for bo in (b2, b3):
+        for a, b in zip(bo, b1):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_vo_on_card_takes_one_launch_a_solve(cuda_device, monkeypatch):
+    """The front end on the card, given no device: each localization is one
+    launch of `kernels.localize` and each BA one of `kernels.ba_solve`, and
+    neither plain version runs on a card tensor."""
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import localize as kloc
+    from evo_tpu_torch.solve import ransac
+    from evo_tpu_torch.vo import ba
+
+    plain_on_card = []
+    for mod, name in ((ransac, "localize_camera_fused_ref"), (ba, "ba_solve_ref")):
+        inner = getattr(mod, name)
+
+        def watch(*args, _inner=inner, _name=name, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card.append(_name)
+            return _inner(*args, **kw)
+
+        monkeypatch.setattr(mod, name, watch)
+    calib, frames, gt_t, gt = _vo_keyframes()
+    vo = frontend.VisualOdometryFrontEnd(calib, seed=0)
+    vo.set_ground_truth(gt_t, gt)
+    kloc.reset_counts()
+    kba.reset_counts()
+    for t, lms in frames:
+        vo.new_keyframe_candidate(Keyframe(t_us=t, landmarks=dict(lms)))
+    assert vo.solve_devices == {"cuda"} and not plain_on_card
+    assert kloc.launches_localize == vo.stage_calls["localize"] >= 9
+    assert kba.launches_ba == vo.stage_calls["ba"] == len(vo.ba_log) >= 9
+    assert vo.last_ate.rmse < 0.05
