@@ -8,8 +8,8 @@ Phases (any failure raises and exits non-zero):
 2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc
    (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu, localize.cu,
    ba_solve.cu), one nvcc for each source (and one for each clock build: the
-   alignment kernel's and compensation's two), all started together, and
-   prints ptxas's register, spill and shared-memory lines;
+   alignment kernel's, compensation's two and VO's two), all started
+   together, and prints ptxas's register, spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
    re-budget) against its plain version `align.solve_step_ref` on the
@@ -68,7 +68,13 @@ Phases (any failure raises and exits non-zero):
    (`time_vo.check_ba`: costs 1e-5 relative, the same trips unless a
    decision lies within 2 % of tol of its threshold, poses and landmarks
    held to the float64 witness the same way); each timed as above, with
-   `cholesky_ex` + `cholesky_solve` on the BA's reduced system beside it;
+   `cholesky_ex` + `cholesky_solve` on the BA's reduced system beside it.
+   The BA runs as one thread-block cluster (`kernels.ba_solve.CLUSTER`
+   blocks) and must give the same bits in clusters of 1, 2, 4, 8 and 16
+   blocks; each VO kernel's clock build (-DEVO_LOC_CLOCKS, -DEVO_BA_CLOCKS)
+   must give its kernel's bits with its stages adding up to its total, and
+   its split by stage (`kernels.localize.STAGES`, `kernels.ba_solve.STAGES`,
+   cycles of one launch after 200) is printed;
 4. sweep: the forward tile kernel with 1, 2, 4 and 8 private copies of the
    image at 256 threads (8 copies: one per warp, no atomics), and at 384 and
    512 threads; the backward at 256 and 512 threads;
@@ -732,6 +738,14 @@ def phase_vo_kernels(timer, dev, label: str, dataset) -> list[dict]:
               f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
               f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})  "
               f"plain {r['plain_ms'] * 1e3:.2f} us  library none ({label})", flush=True)
+        print(f"{r['kernel']} clock split {r['shape']} (clock build "
+              f"{r['clock_build_ms'] * 1e3:.2f} us; cycles at {r['clock']['sm_mhz']} MHz): "
+              f"{time_vo.split_text(r['clock'])}", flush=True)
+    sizes = time_vo.cluster_sizes(timer, dev, calls)
+    print(f"ba_solve in clusters of {sizes['sizes']} blocks: the same bits "
+          f"{sizes['same_bits']}, device us {sizes['device_us']}", flush=True)
+    if not sizes["same_bits"]:
+        raise AssertionError(f"ba_solve's bits depend on its cluster's size: {sizes}")
     print(f"VO kernels recorded {len(calls['localize'])} localizations and {len(calls['ba'])} "
           f"BAs, checked in {time.perf_counter() - t0:.2f} s", flush=True)
     return rows
@@ -1901,7 +1915,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = (splat._lib, align_step._lib, partial(align_step._lib, clocks=True), comp_tile._lib,
             partial(comp_tile._lib, clocks=True), comp_step._lib,
-            partial(comp_step._lib, clocks=True), localize._lib, ba_solve._lib)
+            partial(comp_step._lib, clocks=True), localize._lib,
+            partial(localize._lib, clocks=True), ba_solve._lib, partial(ba_solve._lib, clocks=True))
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
@@ -1909,7 +1924,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
                  "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock", "evo_localize",
-                 "evo_ba_solve"):
+                 "evo_localize_clock", "evo_ba_solve", "evo_ba_solve_clock"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -2042,8 +2057,10 @@ def main() -> int:
             launches_mesh_gloo_ranks=[r["launches"][name] for r in meshed["b"]["ranks"]],
             max_abs_err=row["max_abs_err"], shape=row["shape"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None, host_us=row["host_us"],
-            **({"cholesky_library_ms": row["cholesky_library_ms"], "trips": row["trips"]}
+            library_ms=None, host_us=row["host_us"], clock=row["clock"],
+            clock_build_ms=row["clock_build_ms"],
+            **({"cholesky_library_ms": row["cholesky_library_ms"], "trips": row["trips"],
+                "orders_ms": row["orders_ms"], "cluster": row["cluster"]}
                if name == "ba_solve" else {"lm_trips": row["trips"]})))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,14 +3,19 @@
 Counterpart of `evo_tpu/solve/ransac.py::localize_camera_fused` (one jitted
 XLA program in the JAX package; it has no Pallas kernel here):
 `csrc/localize.cu`, built at first use by `kernels.nvcc` with `-fmad=false`,
-unprojects the pixels, solves Grunert's P3P for every given minimal sample,
-scores the 4 roots of each, takes the first candidate with the most
-inliers, refines it by the LM of `solve.lm.lm_solve` with a closed-form
-Jacobian (`angle_residual_jacobian` is its plain form) and reselects the
-inliers. The plain version is `solve.ransac.localize_camera_fused_ref`;
+unprojects the pixels, solves Grunert's P3P for every given minimal sample
+(a warp eight samples, a lane a root), scores the 4 roots of each (a warp a
+candidate, its lanes over the points), takes the first candidate with the
+most inliers (a block reduction), refines it by the LM of `solve.lm.lm_solve`
+with a closed-form Jacobian (`angle_residual_jacobian` is its plain form)
+and reselects the inliers, in one block; its bits do not depend on the
+block's size. The plain version is `solve.ransac.localize_camera_fused_ref`;
 `solve.ransac.localize_camera_fused` picks between the two by the tensors'
 device. Tensors on the card only: a CPU tensor raises here, as does a
-failed build or launch.
+failed build or launch. `localize(..., clocks=True)` launches the clock
+build (-DEVO_LOC_CLOCKS, a library of its own), which writes the launch's
+clock64() cycles by stage (`STAGES`) into the result's `clocks`; the main
+path never launches it.
 """
 
 from __future__ import annotations
@@ -49,16 +54,25 @@ def _count() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # intr, pix, pts, valid, samples, grid, threshold, n, h, threads, fout,
-    # iout, inliers, stream
-    "evo_localize": ([_P] * 6 + [_F] + [_I] * 3 + [_P] * 4, _I),
+    # iout, inliers, clocks, stream
+    "evo_localize": ([_P] * 6 + [_F] + [_I] * 3 + [_P] * 5, _I),
 }
+# the clock build's stages, in csrc/localize.cu's `Stage` order: (a) to (d)
+# (with the refinement's weights), the LM's linearizations, normal equations
+# and one-thread solves and decisions (summed over its trips), (f)
+STAGES = ("unproject", "p3p", "score", "select", "lm_linearize", "lm_normal", "lm_solve",
+          "reselect", "total")
 _grid_lock = threading.Lock()
 _grids: dict = {}
 
 
-def _lib():
-    """The compiled kernel (built from csrc/localize.cu at first use)."""
-    return nvcc.load("evo_localize", ["localize.cu"], _SIGNATURES, extra_flags=("-fmad=false",),
+def _lib(clocks: bool = False):
+    """The compiled kernel (built from csrc/localize.cu at first use); with
+    `clocks`, its clock build (-DEVO_LOC_CLOCKS)."""
+    name, flags = "evo_localize", ("-fmad=false",)
+    if clocks:
+        name, flags = name + "_clock", flags + ("-DEVO_LOC_CLOCKS",)
+    return nvcc.load(name, ["localize.cu"], _SIGNATURES, extra_flags=flags,
                      headers=("vo_geometry.cuh",))
 
 
@@ -81,12 +95,14 @@ class LocalizeResult:
     candidate_valid: torch.Tensor  # [4 H] int32, 1 where the root is valid
     counts: torch.Tensor  # [4 H] int32 inliers of each candidate
     trips: torch.Tensor  # [] int32, the refinement's LM trips
+    clocks: torch.Tensor | None = None  # [len(STAGES)] int64, the clock build's
 
 
 def run(launch, intr, pix, points, valid_mask, threshold: float, indices,
-        threads: int = THREADS) -> LocalizeResult:
+        threads: int = THREADS, clocks: bool = False) -> LocalizeResult:
     """Check the inputs, allocate the outputs in one arena on pix's device
-    and call `launch(*the entry's arguments but the stream)`."""
+    and call `launch(*the entry's arguments but the stream)`; with `clocks`,
+    an int64 [len(STAGES)] for the clock build's cycles too."""
     dev = pix.device
     n, h = pix.shape[0], indices.shape[0]
     want = dict(intr=(intr, (9,), torch.float32), pix=(pix, (n, 2), torch.float32),
@@ -107,28 +123,31 @@ def run(launch, intr, pix, points, valid_mask, threshold: float, indices,
     arena = torch.empty(nf + ni + (n + 3) // 4, dtype=torch.float32, device=dev)
     fout, iout = arena[:nf], arena[nf:nf + ni].view(torch.int32)
     inliers = arena[nf + ni:].view(torch.uint8)[:n]
+    clk = torch.zeros(len(STAGES), dtype=torch.int64, device=dev) if clocks else None
     launch(intr.data_ptr(), pix.data_ptr(), points.data_ptr(), valid_mask.data_ptr(),
            indices.data_ptr(), _grid(dev).data_ptr(), float(threshold), n, h, threads,
-           fout.data_ptr(), iout.data_ptr(), inliers.data_ptr())
+           fout.data_ptr(), iout.data_ptr(), inliers.data_ptr(),
+           0 if clk is None else clk.data_ptr())
     return LocalizeResult(
         pose=fout[:7], inliers=inliers.view(torch.bool), best_idx=iout[0], num_inliers=iout[1],
         ransac_pose=fout[7:14], candidates=fout[14:].view(4 * h, 7),
         candidate_valid=iout[2 + 4 * h:2 + 8 * h], counts=iout[2:2 + 4 * h],
-        trips=iout[2 + 8 * h])
+        trips=iout[2 + 8 * h], clocks=clk)
 
 
-def localize(intr, pix, points, valid_mask, threshold: float, indices) -> LocalizeResult:
+def localize(intr, pix, points, valid_mask, threshold: float, indices,
+             clocks: bool = False) -> LocalizeResult:
     """The localization of `solve.ransac.localize_camera_fused` on the card:
     intr [9], pix [N, 2], points [N, 3] float32, valid_mask [N] bool and the
     minimal samples `indices` [H, 3] int64 (moved to the card if they are
-    not there). One launch."""
+    not there). One launch; with `clocks`, of the clock build."""
     dev = pix.device
     if dev.type != "cuda":
         raise RuntimeError(f"localize has no kernel for device {dev}: the plain version is "
                            "solve.ransac.localize_camera_fused_ref")
-    fn = _lib().evo_localize
+    fn = _lib(clocks).evo_localize
     out = run(lambda *args: nvcc.launch(fn, pix, *args), intr, pix, points, valid_mask,
-              threshold, indices.to(dev, torch.int64))
+              threshold, indices.to(dev, torch.int64), clocks=clocks)
     _count()
     return out
 

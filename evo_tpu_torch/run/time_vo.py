@@ -3,6 +3,8 @@ and VO's two kernels held to their plain versions and timed.
 
     python evo_tpu_torch/run/time_vo.py [--root DIR] [--frames N] [--reps R]
     python evo_tpu_torch/run/time_vo.py [--root DIR] --kernels [--frames N]
+    python evo_tpu_torch/run/time_vo.py --drive-clusters C [C ...] [--reps R]
+        [--drive-modes default sync]
 
 Simulates `chip_smoke.py`'s scene (`3walls`, 1.2 s at 20 fps, seed 3) with
 the `evo_tpu_torch` package found under DIR (default: the tree this file is
@@ -36,11 +38,28 @@ a launch, the bound (`time_comp.bound`: the floating-point operations the
 call's data needs, counted by `localize_flops` and `ba_flops`, over 67
 TFLOP/s, against its bytes over 3.35 TB/s), the plain version's time and,
 for the BA, that of `torch.linalg.cholesky_ex` + `torch.cholesky_solve` on
-the call's first reduced system (the port never calls them). Each kernel's
+the call's first reduced system (the port never calls them), and, where the
+tree has the kernels' clock builds, each one's split by stage
+(`clock_localize`, `clock_ba`: the cycles of one launch after 200). Each kernel's
 result is held to a float64 witness, the plain version run in float64 from
 the same start (`witness_bar`), and `decision_ties` finds the plain BA's
 decisions that lie within 2 % of `tol` of their thresholds, the only place
-where kernel and plain version may take other trips.
+where kernel and plain version may take other trips. Where the tree's BA
+runs in a thread-block cluster, it times the largest BA at each cluster
+size and checks that every size gives the same bits (`cluster_sizes`).
+Last it prints a
+SHA-256 of the inputs and outputs of every recorded call run once more
+through the tree's kernels (`call_digests`): two trees give equal lists
+where their kernels give the same bits.
+
+`--drive-clusters` runs the standard mode's default drive
+(`time_comp.run_mode(dataset, "default")`: compensation's kernels on their
+own streams beside VO's), and with `--drive-modes default sync` the
+synchronous drive too, with the BA launched in clusters of each size C,
+after one warm-up run, R rounds of the sizes in turns, each round in the
+order of the last reversed (`drives_by_cluster`): one JSON line a run with
+its wall, stage and VO stage seconds, so that a cluster that waits for its
+SMs behind the concurrent work shows in the `ba` stage.
 """
 
 from __future__ import annotations
@@ -396,6 +415,7 @@ def check_ba(timer, dev, call, reps: int = 200) -> dict:
     plain_w = max([apart(want, witness)] + [apart(ba.ba_solve_ref(
         poses, nudged(lms, k), *args[2:], **kw), witness) for k in range(NUDGES)])
     row = dict(kernel="ba_solve", shape=f"F {F}, L {L}, O {O}", max_abs_err=apart(got, want),
+               cluster=getattr(kba, "CLUSTER", 1),
                cost_rel_err=cost_err, cost0_rel_err=cost0_err, trips=[trips, want[4], witness[4]],
                decision_ties=ties, witness_err=[got_w, plain_w], compensated=kw["compensated"])
     if not (cost_err <= 1e-5 and cost0_err <= 1e-5 and got_w <= witness_bar(plain_w)
@@ -434,6 +454,165 @@ def check_ba(timer, dev, call, reps: int = 200) -> dict:
     return row
 
 
+def clock_split(stages, clocks) -> dict:
+    """A clock build's cycles by stage, with the card's SM clock at the read."""
+    from evo_tpu_torch.run.time_align import sm_clock_mhz
+
+    cur, top = sm_clock_mhz()
+    return dict(stages=list(stages), cycles=[int(v) for v in clocks.cpu()], sm_mhz=[cur, top])
+
+
+def split_text(c: dict) -> str:
+    """A clock split as one line: each stage's cycles and share of the total."""
+    total = max(c["cycles"][-1], 1)
+    return "  ".join(f"{s} {v} ({100.0 * v / total:.1f} %)"
+                     for s, v in zip(c["stages"], c["cycles"]))
+
+
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def ba_call(dev, call) -> tuple:
+    """A recorded BA call's eight tensors on `dev` as the kernel takes them,
+    its keywords, and its orders (`vo.ba.observation_orders`)."""
+    from evo_tpu_torch.vo import ba
+
+    args, kw = call
+    poses, lms, intr, of, ol, op, om, fixed = [a.to(dev) for a in args]
+    args = [poses, lms, intr, of.long(), ol.long(), op, om.bool(), fixed.bool()]
+    return args, kw, ba.observation_orders(args[3], args[4], poses.shape[0], lms.shape[0],
+                                           kw["compensated"], args[6])
+
+
+def clock_ba(timer, dev, call, reps: int = 200) -> dict:
+    """`kernels.ba_solve`'s clock build on one recorded call: its results the
+    plain build's bits and its stages adding up to the total (raises
+    otherwise); its device ms over `reps` launches (`clock_build_ms`) and
+    the split of one launch after them (`clock`)."""
+    from evo_tpu_torch.kernels import ba_solve as kba
+
+    args, kw, orders = ba_call(dev, call)
+    plain = kba.ba_solve(*args, orders, **kw)
+    *got, clocks = kba.ba_solve(*args, orders, **kw, clocks=True)
+    torch.cuda.synchronize(dev)
+    c = clocks.cpu()
+    if not _same_bits(plain, got) or int(c[:-1].sum()) != int(c[-1]) or not bool((c >= 0).all()):
+        raise AssertionError(f"ba_solve's clock build is off: bits {_same_bits(plain, got)}, "
+                             f"cycles {c.tolist()}")
+    ms = timer.device_ms(lambda: kba.ba_solve(*args, orders, **kw, clocks=True), reps)
+    clocks = kba.ba_solve(*args, orders, **kw, clocks=True)[-1]
+    torch.cuda.synchronize(dev)
+    return dict(clock_build_ms=ms, clock=clock_split(kba.STAGES, clocks))
+
+
+LOCALIZE_FIELDS = ("pose", "inliers", "best_idx", "num_inliers", "ransac_pose", "candidates",
+                   "candidate_valid", "counts", "trips")
+
+
+def clock_localize(timer, dev, call, reps: int = 200) -> dict:
+    """`kernels.localize`'s clock build on one recorded call, as `clock_ba`."""
+    from evo_tpu_torch.kernels import localize
+
+    (intr, pix, pts, n, valid, thr), kw = call
+    idx = kw["indices"].to(dev, torch.int64)
+    intr, pix, pts, valid = (a.to(dev) for a in (intr, pix, pts, valid))
+    plain = localize.localize(intr, pix, pts, valid, thr, idx)
+    got = localize.localize(intr, pix, pts, valid, thr, idx, clocks=True)
+    torch.cuda.synchronize(dev)
+    c = got.clocks.cpu()
+    same = _same_bits([getattr(plain, f) for f in LOCALIZE_FIELDS],
+                      [getattr(got, f) for f in LOCALIZE_FIELDS])
+    if not same or int(c[:-1].sum()) != int(c[-1]) or not bool((c >= 0).all()):
+        raise AssertionError(f"localize's clock build is off: bits {same}, cycles {c.tolist()}")
+    ms = timer.device_ms(lambda: localize.localize(intr, pix, pts, valid, thr, idx, clocks=True),
+                         reps)
+    clocks = localize.localize(intr, pix, pts, valid, thr, idx, clocks=True).clocks
+    torch.cuda.synchronize(dev)
+    return dict(clock_build_ms=ms, clock=clock_split(localize.STAGES, clocks))
+
+
+def cluster_sizes(timer, dev, calls: dict, sizes=(1, 2, 4, 8, 16), reps: int = 50) -> dict:
+    """The largest recorded BA in clusters of each of `sizes` blocks: whether
+    every size gives the bits of the default size, and each one's device µs
+    a launch over `reps` launches (None where the card cannot place such a
+    cluster, or the launch fails: 16 blocks is beyond the portable 8)."""
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import nvcc
+
+    args, kw, orders = ba_call(dev, largest(calls["ba"], lambda a: (a[3].shape[0],
+                                                                      int(a[6].sum()))))
+    lib = kba._lib()
+
+    def solve(c):
+        return kba.run(lib, lambda *a: nvcc.launch(lib.evo_ba_solve, args[0], *a), *args, orders,
+                       **kw, cluster=c)
+
+    want = solve(kba.CLUSTER)
+    same, device_us, failed = True, [], {}
+    for c in sizes:
+        try:
+            got = solve(c)
+            torch.cuda.synchronize(dev)
+        except RuntimeError as e:
+            if c <= 8:
+                raise
+            failed[c] = str(e)
+            device_us.append(None)
+            continue
+        same = same and _same_bits(got, want)
+        device_us.append(timer.device_ms(lambda: solve(c), reps) * 1e3)
+    return dict(sizes=list(sizes), same_bits=same, device_us=device_us, failed=failed)
+
+
+def drives_by_cluster(dataset, sizes, rounds: int, modes=("default",)) -> list:
+    """Each of `modes` (`time_comp.run_mode`'s: default, sync) with
+    `kernels.ba_solve.CLUSTER` set to each of `sizes` in turns (restored
+    after), after one warm-up run: `rounds` rounds, each in the order of the
+    last reversed; a row a run, with its `ba_cluster`."""
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.run.time_comp import run_mode
+
+    default, order, rows = kba.CLUSTER, [(m, c) for c in sizes for m in modes], []
+    try:
+        run_mode(dataset, modes[0])
+        for _ in range(rounds):
+            for m, c in order:
+                kba.CLUSTER = c
+                rows.append(dict(run_mode(dataset, m), ba_cluster=c))
+            order.reverse()
+    finally:
+        kba.CLUSTER = default
+    return rows
+
+
+def call_digests(dev, calls: dict) -> dict:
+    """Every recorded call run once more through the tree's kernel on `dev`:
+    a SHA-256 of its inputs and its outputs a call, by kind. Two trees whose
+    kernels give the same bits give the same lists."""
+    import hashlib
+
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import localize
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {"localize": [], "ba": []}
+    for (intr, pix, pts, n, valid, thr), kw in calls["localize"]:
+        idx = kw["indices"].to(dev, torch.int64)
+        ins = [a.to(dev) for a in (intr, pix, pts, valid)]
+        got = localize.localize(*ins, thr, idx)
+        out["localize"].append(digest(ins + [idx] + [getattr(got, f) for f in LOCALIZE_FIELDS]))
+    for call in calls["ba"]:
+        args, kw, orders = ba_call(dev, call)
+        out["ba"].append(digest(args + list(kba.ba_solve(*args, orders, **kw))))
+    return out
+
+
 def largest(calls: list, size) -> tuple:
     """The recorded call with the largest `size(args)`, the last of ties."""
     return max(reversed(calls), key=lambda c: size(c[0]))
@@ -442,10 +621,19 @@ def largest(calls: list, size) -> tuple:
 def check_kernels(timer, dev, calls: dict, reps: int = 200) -> list:
     """`check_localize` on the largest recorded localization (by N, then
     valid points) and `check_ba` on the largest recorded BA (by O, then
-    observations)."""
+    observations), each with its clock build's split (`clock_localize`,
+    `clock_ba`) where the tree has one."""
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import localize
+
     loc = largest(calls["localize"], lambda a: (a[1].shape[0], a[3]))
     bac = largest(calls["ba"], lambda a: (a[3].shape[0], int(a[6].sum())))
-    return [check_localize(timer, dev, loc, reps), check_ba(timer, dev, bac, reps)]
+    rows = [check_localize(timer, dev, loc, reps), check_ba(timer, dev, bac, reps)]
+    if hasattr(localize, "STAGES"):  # the tree has the clock builds
+        rows[0].update(clock_localize(timer, dev, loc, reps))
+    if hasattr(kba, "STAGES"):
+        rows[1].update(clock_ba(timer, dev, bac, reps))
+    return rows
 
 
 def sum_repeats(dev, reps: int = 30) -> dict:
@@ -501,6 +689,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=4)
     ap.add_argument("--kernels", action="store_true",
                     help="hold VO's kernels to their plain versions and time them instead")
+    ap.add_argument("--drive-clusters", type=int, nargs="+", metavar="C",
+                    help="time the standard mode with the BA in clusters of these sizes "
+                         "instead, in --reps rounds")
+    ap.add_argument("--drive-modes", nargs="+", default=["default"], choices=["default", "sync"],
+                    help="the drives --drive-clusters runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_vo: no CUDA card", file=sys.stderr)
@@ -512,6 +705,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     dataset = sim.to_dataset(sim.EventCameraSimulator(sim.SimParams(**SCENE),
                                                       device=dev).generate())
+    if args.drive_clusters:
+        for row in drives_by_cluster(dataset, args.drive_clusters, args.reps,
+                                     args.drive_modes):
+            print(f"time_vo {args.root}: drive " + json.dumps(dict(row, card=card())),
+                  flush=True)
+        return 0
     if args.kernels:
         from evo_tpu_torch.kernels import nvcc
         from evo_tpu_torch.run.time_splat import Timer
@@ -520,6 +719,17 @@ def main(argv=None) -> int:
         for row in check_kernels(Timer(dev), dev, calls):
             print(f"time_vo {args.root}: kernel " + json.dumps(dict(row, card=card()),
                                                                default=str), flush=True)
+            if "clock" in row:
+                print(f"time_vo {args.root}: {row['kernel']} clock split ({row['shape']}; "
+                      f"cycles at {row['clock']['sm_mhz']} MHz): "
+                      f"{split_text(row['clock'])}", flush=True)
+        from evo_tpu_torch.kernels import ba_solve as kba
+
+        if hasattr(kba, "CLUSTER"):  # the tree's BA runs in a cluster
+            print(f"time_vo {args.root}: ba_solve by cluster size "
+                  + json.dumps(cluster_sizes(Timer(dev), dev, calls)), flush=True)
+        print(f"time_vo {args.root}: digests " + json.dumps(call_digests(dev, calls)),
+              flush=True)
         for name, log in sorted(nvcc.build_logs.items()):
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:

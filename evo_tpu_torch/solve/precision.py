@@ -83,6 +83,14 @@ class SegmentSum:
         edges = torch.arange(n_out + 2, device=idx.device)
         self.starts = torch.searchsorted(idx[order], edges)
 
+    @classmethod
+    def from_order(cls, order, starts, n_out: int) -> "SegmentSum":
+        """The sum of an `order` [O] and `starts` [n_out + 2] built elsewhere
+        (`vo.ba.observation_orders` builds three in one sort)."""
+        seg = cls.__new__(cls)
+        seg.order, seg.starts, seg.n_out = order, starts, n_out
+        return seg
+
     def __call__(self, vals):
         return torch.segment_reduce(vals[self.order], "sum", lengths=torch.diff(self.starts),
                                     axis=0, unsafe=True, initial=0.0)[:self.n_out]

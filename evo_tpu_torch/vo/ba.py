@@ -20,7 +20,9 @@ loop is a Python loop that reads one flag per iteration.
 from __future__ import annotations
 
 import functools
+import threading
 
+import numpy as np
 import torch
 
 from evo_tpu_torch.core import camera, lie
@@ -58,20 +60,58 @@ def _obs_linearize(pose, lm, intr, p2d):
     return r, Jp, Jl
 
 
+_order_consts: dict = {}
+_order_lock = threading.Lock()
+
+
+def _order_constants(F: int, L: int, compensated: bool, device):
+    """`observation_orders`' constants for one shape, made once: the masked
+    rows' slot of each sum [3, 1] and the slots' edges [3, L F + 2] (scaled
+    by the key's range, L F, where the key is a pair)."""
+    k = (F, L, compensated, device)
+    with _order_lock:
+        if k not in _order_consts:
+            n = torch.tensor([[F], [L], [L * F]], device=device)
+            scale = 1 if compensated else L * F
+            edges = (torch.arange(L * F + 2, device=device) * scale).expand(3, -1).contiguous()
+            _order_consts[k] = (n, edges)
+        return _order_consts[k]
+
+
 def observation_orders(obs_frame, obs_lm, F: int, L: int, compensated: bool = False,
                        obs_mask=None):
     """The orders in which the normal equations' three slot sums (by frame,
     by landmark, by (landmark, frame) pair) add observations obs_frame,
     obs_lm [O], as `SegmentSum`s: by slot and then by (landmark, frame)
     pair, which is the order the front end lists observations in, with the
-    observations whose `obs_mask` is False (weight 0) left out; with
-    `compensated`, by slot and index over every row, the order of
-    `compensated_scatter_add` within each of its chunks."""
-    obs_frame, obs_lm = obs_frame.long(), obs_lm.long()
-    pair = obs_lm * F + obs_frame
-    key, keep = (None, None) if compensated else (pair, obs_mask)
-    return [SegmentSum(i, n, key=key, keep=keep)
-            for i, n in ((obs_frame, F), (obs_lm, L), (pair, L * F))]
+    observations whose `obs_mask` is False (weight 0) left out (in one more
+    slot past the last); with `compensated`, by slot and index over every
+    row, the order of `compensated_scatter_add` within each of its chunks.
+
+    Each equals `SegmentSum(idx, n, key=pair, keep=obs_mask)` (or
+    `SegmentSum(idx, n)`) bit for bit, `order` and `starts`, in six PyTorch
+    operations (four with `compensated`) and no host read: the three sums'
+    keys slot L F + pair (or the slot) stacked into one [3, O] tensor, one
+    stable sort of its rows (ties by index: SegmentSum's order), one batched
+    `searchsorted` of the slots' edges for the starts; the rest are views."""
+    if obs_frame.dtype != torch.int64:
+        obs_frame = obs_frame.long()
+    if obs_lm.dtype != torch.int64:
+        obs_lm = obs_lm.long()
+    n, edges = _order_constants(F, L, compensated, obs_frame.device)
+    pair = torch.add(obs_frame, obs_lm, alpha=F)
+    slots = torch.stack((obs_frame, obs_lm, pair))
+    if compensated:
+        keys = slots
+    else:
+        mask = obs_mask if obs_mask is None or obs_mask.dtype == torch.bool else obs_mask.bool()
+        if mask is not None:
+            slots = torch.where(mask, slots, n)
+        keys = torch.add(pair, slots, alpha=L * F)
+    keys, order = torch.sort(keys, dim=1, stable=True)
+    starts = torch.searchsorted(keys, edges)
+    return [SegmentSum.from_order(o, s[:m + 2], m)
+            for o, s, m in zip(order.unbind(0), starts.unbind(0), (F, L, L * F))]
 
 
 def observation_sums(obs_frame, obs_lm, F: int, L: int, compensated: bool = False,
@@ -169,6 +209,21 @@ def ba_solve(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, obs_mask, pose_
                             huber=huber, compensated=compensated, tol=tol)
     return ba_solve_ref(poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, obs_mask, pose_fixed,
                         num_iters=num_iters, huber=huber, compensated=compensated, tol=tol)
+
+
+def result_to_host(res) -> tuple:
+    """`ba_solve`'s result on the host as numpy: (poses', landmarks', cost,
+    cost0, iterations), the last three Python numbers. The kernel's result
+    lies in one block of the card's memory (`kernels.ba_solve.BaResult`):
+    one copy reads it all."""
+    packed = getattr(res, "packed", None)
+    if packed is None:
+        poses, lms, cost, cost0, iters = res
+        return (poses.cpu().numpy(), lms.cpu().numpy(), float(cost), float(cost0), int(iters))
+    f, l = res[0].shape[0], res[1].shape[0]
+    host = packed.cpu().numpy()
+    return (host[:f * 7].reshape(f, 7), host[f * 7:f * 7 + l * 3].reshape(l, 3),
+            float(host[-3]), float(host[-2]), int(host[-1:].view(np.int32)[0]))
 
 
 def ba_solve_ref(

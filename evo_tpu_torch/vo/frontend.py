@@ -38,6 +38,8 @@ from evo_tpu_torch.vo.align_sim3 import ErrorMetric, align_trajectories_sim3
 from evo_tpu_torch.vo.keyframe import Keyframe, MapLandmarks, Match
 
 _log = logging.getLogger(__name__)
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int64): torch.int64,
+                 np.dtype(np.bool_): torch.bool}
 
 
 @dataclasses.dataclass
@@ -159,6 +161,21 @@ class VisualOdometryFrontEnd:
 
     def _f32(self, arr) -> torch.Tensor:
         return torch.tensor(np.asarray(arr), dtype=torch.float32, device=self.device)
+
+    def _packed(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """Host arrays on the device in one copy of one packed buffer: a view
+        of it for each array, with the array's dtype and shape (each at an
+        8-byte offset)."""
+        offsets, size = [], 0
+        for a in arrays:
+            offsets.append(size)
+            size += -(-a.nbytes // 8) * 8
+        buf = np.zeros(size, np.uint8)
+        for a, at in zip(arrays, offsets):
+            buf[at:at + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        dev = torch.from_numpy(buf).to(self.device)
+        return [dev[at:at + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+                for a, at in zip(arrays, offsets)]
 
     def _pad2(self, arr, size: int) -> torch.Tensor:
         """Rows of `arr` (numpy or tensor) as float32 on the device, padded
@@ -286,13 +303,16 @@ class VisualOdometryFrontEnd:
         b = _bucket(n)
         threshold = 1.0 - np.cos(np.arctan2(self.params.reprojection_error_px, 200.0))
         with self._timed("localize"):
+            # padded on the host, moved in one copy
+            pix_b = np.zeros((b, 2), np.float32)
+            pts_b = np.zeros((b, 3), np.float32)
+            pix_b[:n], pts_b[:n] = pix, pts
+            idx = self._sample_indices(self.params.num_localize_hypotheses, 3, n, b)
+            pix_t, pts_t, valid, idx = self._packed(pix_b, pts_b, np.arange(b) < n,
+                                                    idx.numpy().astype(np.int64))
             refined, inl_mask = ransac.localize_camera_fused(
-                self.intr, self._pad2(pix, b), self._pad2(pts, b), n,
-                torch.arange(b, device=self.device) < n, float(threshold),
-                num_hypotheses=self.params.num_localize_hypotheses,
-                indices=self._sample_indices(
-                    self.params.num_localize_hypotheses, 3, n, b),
-            )
+                self.intr, pix_t, pts_t, n, valid, float(threshold),
+                num_hypotheses=self.params.num_localize_hypotheses, indices=idx)
             refined_np, inl = self._pull(refined, inl_mask)
         pose_np = refined_np.astype(np.float64)
         # sanity gate: a localization that teleports the camera outside the
@@ -413,18 +433,17 @@ class VisualOdometryFrontEnd:
         fixed[: min(2, F)] = True
         fixed[F:] = True  # padding frames pinned
 
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-
         with self._timed("ba"):
-            new_poses, new_lms, cost, cost0, ba_iters = ba.ba_solve(
-                dev(poses), dev(lms), self.intr, dev(of), dev(ol), dev(op), dev(om),
-                dev(fixed), num_iters=self.params.max_iterations,
+            # the inputs in one copy; the results (and the trips) in one read
+            poses_t, lms_t, *obs = self._packed(poses, lms, of, ol, op, om, fixed)
+            res = ba.ba_solve(
+                poses_t, lms_t, self.intr, *obs, num_iters=self.params.max_iterations,
                 huber=self.params.huber_loss, compensated=self.params.ba_compensated,
                 tol=self.params.ba_tol,
             )
-            new_poses, new_lms, costs = self._pull(new_poses, new_lms,
-                                                   torch.stack([cost0, cost]))
+            self.solve_devices.add(res[0].device.type)
+            new_poses, new_lms, cost, cost0, ba_iters = ba.result_to_host(res)
+            costs = (cost0, cost)
         new_poses = new_poses.astype(np.float64)
         new_lms = new_lms.astype(np.float64)
         # post-solve sanity gates: a weakly constrained direction can let BA

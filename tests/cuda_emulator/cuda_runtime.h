@@ -6,24 +6,33 @@
 // `align_step.cu`, `comp_tile.cu`, `comp_step.cu`, `localize.cu` and
 // `ba_solve.cu` use, and no more.
 //
-// A launch runs the grid's blocks one after another; each block runs as
-// one std::thread for each thread of the block. `__shared__` variables are function statics, so
-// the threads of the running block share them. `__syncthreads` is a
-// std::barrier over the block; the warp shuffles and ballots exchange values
-// through an array between two barriers of the warp, and `__syncwarp` is one
-// such barrier; `atomicAdd` takes a mutex. A launch's dynamic shared memory is a
+// A launch runs the grid's clusters one after another (a `<<<...>>>` launch:
+// clusters of one block); the blocks of a cluster run side by side, each as
+// one std::thread for each thread of the block. `__shared__` variables are
+// function statics, so the threads of every running block share them: a
+// kernel launched in clusters of more than one block keeps its shared state
+// in its dynamic shared memory. `__syncthreads` is a std::barrier over the
+// block, `cluster.sync()` (`cooperative_groups.h` beside this file) one over
+// the cluster; the warp shuffles and ballots exchange values through an
+// array between two barriers of the warp, and `__syncwarp` is one such
+// barrier; `atomicAdd` takes a mutex. A launch's dynamic shared memory is a
 // buffer of the block, which `evo_emu::dynamic_smem()` returns (the tests
-// rewrite `extern __shared__ __align__(16) float name[];` into a call of it).
+// rewrite `extern __shared__ __align__(16) float name[];` into a call of it),
+// and `map_shared_rank` maps a pointer into it to the same place in another
+// block of the cluster.
 // Compile with `g++ -std=c++20 -ffp-contract=off` so that each product and
 // sum rounds on its own, as the kernels' `-fmad=false` build does; an
 // explicit fmaf() is one rounding on both.
 //
 // The test rewrites each `kernel<<<grid, block, smem, stream>>>(args);` of
 // the source into `evo_emu::launch(grid, block, smem, stream, [&] {
-// kernel(args); });` before it compiles it.
+// kernel(args); });`, and each `cudaLaunchKernelEx(&config, kernel, args);`
+// into `evo_emu::launch_ex(&config, [&] { kernel(args); });`, before it
+// compiles it.
 
 #pragma once
 
+#include <atomic>
 #include <barrier>
 #include <chrono>
 #include <cmath>
@@ -59,12 +68,35 @@ struct dim3 {
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 11
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
+};
+
+// the calling thread's built-in indices (variables, not macros, so that a
+// member of the same name, as `cudaLaunchConfig_t::gridDim`, stays free)
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 namespace evo_emu {
 
-inline thread_local dim3 thread_idx, block_idx, block_dim;
+struct Cluster;
 
 struct Block {
   explicit Block(int threads)
@@ -76,15 +108,25 @@ struct Block {
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<unsigned long long> exchange;  // one 8-byte slot a thread
   std::mutex atomic;
+  std::atomic<int> any{0};  // `__syncthreads_or`'s predicate
   std::vector<float> dynamic;  // the launch's dynamic shared memory
+  Cluster* cluster = nullptr;
+  unsigned rank = 0;  // in its cluster
 };
 
-inline Block* block = nullptr;  // the running block
+// the blocks of a cluster, which run side by side, and their barrier
+struct Cluster {
+  Cluster(unsigned blocks, int threads) : sync((std::ptrdiff_t)blocks * threads) {}
+  std::barrier<> sync;
+  std::vector<Block*> blocks;
+};
+
+inline thread_local Block* block = nullptr;  // the block of the calling thread
 
 template <class T>
 T shuffle(T v, int src_lane) {
   static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
-  const int t = (int)thread_idx.x, w = t >> 5;
+  const int t = (int)::threadIdx.x, w = t >> 5;
   unsigned long long slot = 0;
   std::memcpy(&slot, &v, sizeof(T));
   block->exchange[t] = slot;
@@ -99,7 +141,7 @@ T shuffle(T v, int src_lane) {
 // The warp's predicates as a mask, bit l from lane l (every lane of the
 // warp takes part).
 inline unsigned ballot(bool pred) {
-  const int t = (int)thread_idx.x, w = t >> 5;
+  const int t = (int)::threadIdx.x, w = t >> 5;
   block->exchange[t] = pred ? 1 : 0;
   block->warps[w]->arrive_and_wait();
   unsigned m = 0;
@@ -110,42 +152,77 @@ inline unsigned ballot(bool pred) {
   return m;
 }
 
+// The grid's clusters of `cluster` blocks in turn, the blocks of each side by
+// side.
+template <class F>
+void launch_clusters(dim3 grid, dim3 threads, size_t smem, unsigned cluster, F&& body) {
+  for (unsigned first = 0; first < grid.x; first += cluster) {
+    Cluster cl(cluster, (int)threads.x);
+    std::vector<std::unique_ptr<Block>> blocks;
+    for (unsigned r = 0; r < cluster; ++r) {
+      blocks.emplace_back(new Block((int)threads.x));
+      blocks.back()->dynamic.assign((smem + sizeof(float) - 1) / sizeof(float), 0.0f);
+      blocks.back()->cluster = &cl;
+      blocks.back()->rank = r;
+      cl.blocks.push_back(blocks.back().get());
+    }
+    std::vector<std::thread> pool;
+    pool.reserve((size_t)cluster * threads.x);
+    for (unsigned r = 0; r < cluster; ++r)
+      for (unsigned t = 0; t < threads.x; ++t)
+        pool.emplace_back([&, t, r] {
+          block = cl.blocks[r];
+          ::threadIdx = dim3(t);
+          ::blockIdx = dim3(first + r);
+          ::blockDim = threads;
+          ::gridDim = grid;
+          body();
+        });
+    for (auto& th : pool) th.join();
+  }
+}
+
 template <class F>
 void launch(dim3 grid, dim3 threads, size_t smem, cudaStream_t, F&& body) {
-  for (unsigned b = 0; b < grid.x; ++b) {
-    Block blk((int)threads.x);
-    blk.dynamic.assign((smem + sizeof(float) - 1) / sizeof(float), 0.0f);
-    block = &blk;
-    std::vector<std::thread> pool;
-    pool.reserve(threads.x);
-    for (unsigned t = 0; t < threads.x; ++t)
-      pool.emplace_back([&, t, b] {
-        thread_idx = dim3(t);
-        block_idx = dim3(b);
-        block_dim = threads;
-        body();
-      });
-    for (auto& th : pool) th.join();
-    block = nullptr;
-  }
+  launch_clusters(grid, threads, smem, 1, body);
+}
+
+// `cudaLaunchKernelEx` with its cluster attribute (clusters of one block
+// without it)
+template <class F>
+cudaError_t launch_ex(const cudaLaunchConfig_t* config, F&& body) {
+  unsigned cluster = 1;
+  for (unsigned k = 0; k < config->numAttrs; ++k)
+    if (config->attrs[k].id == cudaLaunchAttributeClusterDimension)
+      cluster = config->attrs[k].val.clusterDim.x;
+  if (cluster < 1 || config->gridDim.x % cluster != 0) return cudaErrorInvalidConfiguration;
+  launch_clusters(config->gridDim, config->blockDim, config->dynamicSmemBytes, cluster, body);
+  return cudaSuccess;
 }
 
 inline float* dynamic_smem() { return block->dynamic.data(); }
 
 }  // namespace evo_emu
 
-#define threadIdx evo_emu::thread_idx
-#define blockIdx evo_emu::block_idx
-#define blockDim evo_emu::block_dim
-
 inline void __syncthreads() { evo_emu::block->sync.arrive_and_wait(); }
+// a barrier of the block that returns whether any thread's predicate held
+inline int __syncthreads_or(int pred) {
+  evo_emu::Block* b = evo_emu::block;
+  if (pred) b->any.store(1);
+  b->sync.arrive_and_wait();
+  const int any = b->any.load();
+  b->sync.arrive_and_wait();
+  if (threadIdx.x == 0) b->any.store(0);
+  b->sync.arrive_and_wait();
+  return any;
+}
 inline void __syncwarp(unsigned = 0xffffffffu) {
-  evo_emu::block->warps[(int)evo_emu::thread_idx.x >> 5]->arrive_and_wait();
+  evo_emu::block->warps[(int)::threadIdx.x >> 5]->arrive_and_wait();
 }
 
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int mask) {
-  return evo_emu::shuffle(v, ((int)evo_emu::thread_idx.x & 31) ^ mask);
+  return evo_emu::shuffle(v, ((int)::threadIdx.x & 31) ^ mask);
 }
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
@@ -153,6 +230,7 @@ T __shfl_sync(unsigned, T v, int src) {
 }
 inline unsigned __ballot_sync(unsigned, bool pred) { return evo_emu::ballot(pred); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 inline float atomicAdd(float* at, float v) {
   std::lock_guard<std::mutex> hold(evo_emu::block->atomic);
@@ -188,4 +266,10 @@ inline cudaError_t cudaGetDevice(int* dev) {
 }
 template <class Kernel>
 cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
+// every cluster can be placed: its blocks run as threads
+template <class Kernel>
+cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, Kernel, const cudaLaunchConfig_t*) {
+  *clusters = 1;
+  return cudaSuccess;
+}
 

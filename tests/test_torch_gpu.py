@@ -907,6 +907,51 @@ def test_vo_kernels_repeat_their_bits_beside_each_other_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("compensated", [False, True])
+def test_ba_kernel_gives_its_bits_in_any_cluster_on_card(cuda_device, compensated):
+    """`kernels.ba_solve` in clusters of 1, 2, 4, 8 and 16 blocks of 128 and
+    256 threads: the bits of the default launch every time."""
+    import torch_vo_problems as problems
+
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import nvcc
+    from evo_tpu_torch.vo import ba
+
+    args = [a.to(cuda_device) for a in problems.ba_problem()]
+    orders = ba.observation_orders(args[3], args[4], args[0].shape[0], args[1].shape[0],
+                                   compensated, args[6])
+    kw = dict(num_iters=50, huber=0.8, compensated=compensated, tol=1e-5)
+    want = kba.ba_solve(*args, orders, **kw)
+    lib = kba._lib()
+    for cluster in (1, 2, 4, 8, 16):
+        for threads in (128, 256):
+            got = kba.run(lib, lambda *a: nvcc.launch(lib.evo_ba_solve, args[0], *a), *args,
+                          orders, **kw, threads=threads, cluster=cluster)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), (cluster, threads)
+
+
+@pytest.mark.gpu
+def test_vo_clock_builds_give_the_kernels_bits_on_card(cuda_device):
+    """Each VO kernel's clock build against its plain build on the tests'
+    problems (`run.time_vo.clock_localize`, `clock_ba`): the same bits, and
+    stages that add up to the total."""
+    import torch_vo_problems as problems
+
+    from evo_tpu_torch.kernels import ba_solve as kba
+    from evo_tpu_torch.kernels import localize as kloc
+    from evo_tpu_torch.run import time_vo
+
+    intr, pix, pts, n, valid, idx = problems.localize_problem(0)
+    row = time_vo.clock_localize(_Once(), cuda_device, (
+        [intr, pix, pts, n, valid, problems.THRESHOLD], dict(num_hypotheses=128, indices=idx)), 1)
+    assert row["clock"]["stages"] == list(kloc.STAGES) and row["clock"]["cycles"][-1] > 0
+    row = time_vo.clock_ba(_Once(), cuda_device, (problems.ba_problem(), dict(
+        num_iters=50, huber=0.8, compensated=False, tol=1e-5)), 1)
+    assert row["clock"]["stages"] == list(kba.STAGES) and row["clock"]["cycles"][-1] > 0
+
+
+@pytest.mark.gpu
 def test_vo_on_card_takes_one_launch_a_solve(cuda_device, monkeypatch):
     """The front end on the card, given no device: each localization is one
     launch of `kernels.localize` and each BA one of `kernels.ba_solve`, and

@@ -34,7 +34,10 @@ the float64 witness than twice the plain version; a NaN observation and a reduce
 that is not positive definite (a negative Huber scale) give the plain
 version's rejected steps: nothing moves, the same trips. Both kernels give
 the same bits when a call is repeated, when another problem ran between,
-and at another block size.
+and at another block size (the BA, launched as a thread-block cluster of
+`CLUSTER` blocks, in clusters of other sizes too), and the bits of their
+first versions (`DIGESTS`, SHA-256s of those versions' outputs on these
+problems, taken before the redesigns).
 
 Both kernels' sources are also built in double precision (`_in_float64`)
 and held to the plain versions in float64 at 1e-9: there the two compute
@@ -46,6 +49,7 @@ g++ rounds each operation as `nvcc -fmad=false` does, but `sinf`, `cosf`
 and `sqrtf` are glibc's, not CUDA's."""
 
 import ctypes
+import hashlib
 import os
 import re
 import subprocess
@@ -70,14 +74,19 @@ torch.set_num_threads(1)
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(ba.__file__), "..", "csrc")
 THREADS = 64
+CLUSTER = 2  # the emulated BA's blocks: more than one, so that the cluster's paths run
 
 
 def _emulated_source(src: str) -> str:
     """The source with each launch made a call of the stand-in's
-    `evo_emu::launch`, and its dynamic shared memory the block's buffer."""
+    `evo_emu::launch` (a `<<<...>>>` launch) or `evo_emu::launch_ex` (a
+    `cudaLaunchKernelEx`, with its cluster attribute), and its dynamic shared
+    memory the block's buffer."""
     out, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);",
                      r"evo_emu::launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    assert n == 1, "one kernel launch expected"
+    out, n_ex = re.subn(r"cudaLaunchKernelEx\(&(\w+), (\w+), (.*?)\);",
+                        r"evo_emu::launch_ex(&\1, [&] { \2(\3); });", out, flags=re.S)
+    assert n + n_ex == 1, "one kernel launch expected"
     out, m = re.subn(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                      r"float* \1 = reinterpret_cast<float*>(evo_emu::dynamic_smem());", out)
     assert m == 1, "one dynamic shared array expected"
@@ -94,7 +103,9 @@ def _in_float64(src: str) -> str:
 
 def _compile(tmp, name: str, signatures: dict, float64: bool = False):
     """The kernel `name` built by g++ against the stand-in headers; with
-    `float64`, its source and the shared header in double precision."""
+    `float64`, its source and the shared header in double precision. The BA
+    takes blocks of up to 512 threads here (EVO_BA_MAX_THREADS; the card's
+    build 256, for its registers)."""
     convert = _in_float64 if float64 else (lambda text: text)
     with open(os.path.join(CSRC, name + ".cu")) as f:
         src = tmp / (name + ".cc")
@@ -103,7 +114,8 @@ def _compile(tmp, name: str, signatures: dict, float64: bool = False):
         (tmp / "vo_geometry.cuh").write_text(convert(f.read()))
     lib = tmp / f"lib{name}_emulated.so"
     cmd = ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-           "-I", os.path.join(HERE, "cuda_emulator"), "-I", str(tmp), str(src), "-o", str(lib)]
+           "-DEVO_BA_MAX_THREADS=512", "-I", os.path.join(HERE, "cuda_emulator"), "-I", str(tmp),
+           str(src), "-o", str(lib)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     handle = ctypes.CDLL(str(lib))
@@ -212,7 +224,7 @@ def test_localize_in_float64_is_the_plain_version_in_float64(loc64_lib):
                                          p3p.quartic_grid(torch.float64, "cpu"))]
         assert loc64_lib.evo_localize(*[a.data_ptr() for a in args], THR, pix.shape[0], h,
                                       THREADS, fout.data_ptr(), iout.data_ptr(), inl.data_ptr(),
-                                      None) == 0
+                                      None, None) == 0
         want, want_inl = ransac.localize_camera_fused_ref(*args[:3], n, valid, THR, indices=idx)
         bear = camera.unproject(args[0], args[1])
         best = ransac.absolute_pose_ransac(bear, args[2], n, threshold=THR, valid_mask=valid,
@@ -226,18 +238,18 @@ def test_localize_in_float64_is_the_plain_version_in_float64(loc64_lib):
 
 # -- the BA -------------------------------------------------------------------
 def emulated_ba(lib, poses, landmarks, intr, obs_frame, obs_lm, obs_p2d, obs_mask, pose_fixed, *,
-                num_iters, huber, compensated, tol, threads=THREADS):
+                num_iters, huber, compensated, tol, threads=THREADS, cluster=CLUSTER):
     """`vo.ba.ba_solve`'s launch of the kernel, on the emulated library."""
     orders = ba.observation_orders(obs_frame, obs_lm, poses.shape[0], landmarks.shape[0],
                                    compensated, obs_mask)
     return kba.run(lib, ok(lib.evo_ba_solve), poses, landmarks, intr, obs_frame, obs_lm, obs_p2d,
                    obs_mask, pose_fixed, orders, num_iters=num_iters, huber=huber,
-                   compensated=compensated, tol=tol, threads=threads)
+                   compensated=compensated, tol=tol, threads=threads, cluster=cluster)
 
 
-def run_ba(lib, args, threads=THREADS, **kw):
+def run_ba(lib, args, threads=THREADS, cluster=CLUSTER, **kw):
     kw = dict(dict(num_iters=50, huber=0.8, compensated=False, tol=1e-5), **kw)
-    return emulated_ba(lib, *args, threads=threads, **kw)
+    return emulated_ba(lib, *args, threads=threads, cluster=cluster, **kw)
 
 
 @pytest.mark.parametrize("compensated", [False, True])
@@ -290,7 +302,8 @@ def test_ba_in_float64_is_the_plain_version_in_float64(ba64_lib, compensated):
                                            for t in (seg.order, seg.starts)]
     assert ba64_lib.evo_ba_solve(*ptrs, F, L, O, 50, int(compensated), 0.8, 1.6, 0.64, 1e-5,
                                  fs.data_ptr(), ints.data_ptr(), p.data_ptr(), x.data_ptr(),
-                                 costs.data_ptr(), it.data_ptr(), THREADS, None) == 0
+                                 costs.data_ptr(), it.data_ptr(), None, THREADS, CLUSTER,
+                                 None) == 0
     wp, wx, wcost, wcost0, wit = ba.ba_solve_ref(*args, num_iters=50, compensated=compensated,
                                                  tol=1e-5)
     err = max(float((p - wp).abs().max()), float((x - wx).abs().max()))
@@ -320,15 +333,73 @@ def test_ba_rejects_what_it_cannot_factor(ba_lib):
 
 @pytest.mark.parametrize("compensated", [False, True])
 def test_ba_repeats_its_bits(ba_lib, compensated):
-    """The same call twice, with another problem between, and at 96 and 128
-    threads: the same bits."""
+    """The same call twice, with another problem between, at 96 and 128
+    threads, and in clusters of 1 and 3 blocks: the same bits."""
     args = ba_problem()
     first = run_ba(ba_lib, args, compensated=compensated)
     run_ba(ba_lib, ba_problem(seed=1), compensated=compensated)
-    for threads in (THREADS, 96, 128):
-        again = run_ba(ba_lib, args, threads=threads, compensated=compensated)
+    for threads, cluster in ((THREADS, CLUSTER), (96, CLUSTER), (128, CLUSTER), (THREADS, 1),
+                             (96, 3)):
+        again = run_ba(ba_lib, args, threads=threads, cluster=cluster, compensated=compensated)
         for a, b in zip(first, again):
-            assert torch.equal(a, b), threads
+            assert torch.equal(a, b), (threads, cluster)
+
+
+# -- the bits of the kernels as first written ---------------------------------
+# SHA-256 of the emulated kernels' outputs on `tests/torch_vo_problems.py`'s
+# problems, taken from the first versions of both kernels (one block a
+# solve). A redesign keeps every float operation and its order, so it gives
+# these bits: the localization on eight scenes (every output field); the BA
+# on two problems with both `compensated` values, a NaN observation and a
+# negative Huber scale (poses, landmarks, costs, trips).
+DIGESTS = {
+    "localize": "eab41407eaf12319819c91a2d414df57bfb73ea8b33529ca23161d8cee5cbd26",
+    "ba": "ac455e61acb091cfa17320e4305ab523cdc56efc5d5c5e7721f84c2ea3ca94ca",
+}
+LOCALIZE_FIELDS = ("pose", "inliers", "best_idx", "num_inliers", "ransac_pose", "candidates",
+                   "candidate_valid", "counts", "trips")
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def localize_digest(lib, threads=THREADS) -> str:
+    outs = []
+    for seed in range(8):
+        intr, pix, pts, n, valid, idx = localize_problem(seed)
+        got = run_localize(lib, intr, pix, pts, valid, idx, threads=threads)
+        outs += [getattr(got, f) for f in LOCALIZE_FIELDS]
+    return _digest(outs)
+
+
+def ba_digest(lib, threads=THREADS, cluster=CLUSTER) -> str:
+    launch = dict(cluster=cluster)
+    outs = []
+    for seed in (0, 1):
+        for compensated in (False, True):
+            outs += run_ba(lib, ba_problem(seed=seed), threads=threads, compensated=compensated,
+                           **launch)
+    nan = ba_problem()
+    nan[5][3] = float("nan")
+    outs += run_ba(lib, nan, threads=threads, num_iters=12, **launch)
+    outs += run_ba(lib, ba_problem(), threads=threads, huber=-0.8, **launch)
+    return _digest(outs)
+
+
+def test_localize_keeps_its_bits(loc_lib):
+    """The localization gives the bits of its first version (`DIGESTS`)."""
+    assert localize_digest(loc_lib) == DIGESTS["localize"]
+
+
+@pytest.mark.parametrize("threads, cluster", [(64, 1), (64, 4), (512, 1)])
+def test_ba_keeps_its_bits(ba_lib, threads, cluster):
+    """The BA gives the bits of its first version (`DIGESTS`), in clusters
+    of 1 and 4 blocks of 64 threads and in one block of 512."""
+    assert ba_digest(ba_lib, threads, cluster) == DIGESTS["ba"]
 
 
 # -- the front end with both kernels ------------------------------------------
