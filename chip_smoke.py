@@ -7,9 +7,10 @@ Phases (any failure raises and exits non-zero):
    and the card's name and power limit;
 2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc
    (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu, localize.cu,
-   ba_solve.cu), one nvcc for each source (and one for each clock build: the
-   alignment kernel's, compensation's two and VO's two), all started
-   together, and prints ptxas's register, spill and shared-memory lines;
+   ba_solve.cu, frame_maps.cu, corner_select.cu, frame_rows.cu), one nvcc
+   for each source (and one for each clock build: the alignment kernel's,
+   compensation's two, VO's two and corner_select's), all started together,
+   and prints ptxas's register, spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
    re-budget) against its plain version `align.solve_step_ref` on the
@@ -74,7 +75,19 @@ Phases (any failure raises and exits non-zero):
    blocks; each VO kernel's clock build (-DEVO_LOC_CLOCKS, -DEVO_BA_CLOCKS)
    must give its kernel's bits with its stages adding up to its total, and
    its split by stage (`kernels.localize.STAGES`, `kernels.ba_solve.STAGES`,
-   cycles of one launch after 200) is printed;
+   cycles of one launch after 200) is printed. Then the frame path's three
+   kernels (`run/time_frames.py`'s `check_kernels`): `frame_maps` (gradient
+   pair, Harris response, pyramid levels 1 and 2) within 1e-5 of its plain
+   version on the scene's first 3 frames; `corner_select` with the plain
+   version's corners, order and scores on their responses, and the
+   kernels' corner sets equal to the plain path's (cuDNN's response) on all
+   24 frames, or apart only between responses within 1e-5, each case
+   printed; `frame_rows` on every call of the synchronous run's 24 frames:
+   LK's status and flow (1e-3 px), the table's fields and budgets as the
+   plain version's, or apart only at an LK stop-test tie, each printed;
+   each timed as above (its clock split for `corner_select`), beside its
+   bound, plain version and library (`F.conv2d`'s stacked chain;
+   `torch.topk` and the host greedy pass; none);
 4. sweep: the forward tile kernel with 1, 2, 4 and 8 private copies of the
    image at 256 threads (8 copies: one per warp, no atomics), and at 384 and
    512 threads; the backward at 256 and 512 threads;
@@ -96,7 +109,9 @@ Phases (any failure raises and exits non-zero):
    must be finite, at least 6 keyframes accepted, the VO solves found on the
    card, each localization one launch of `kernels.localize` and each BA one
    of `kernels.ba_solve` (launches equal to the front end's calls, no plain
-   version on a card tensor), compensation on kernels A and B, and the
+   version on a card tensor), every analysed frame one launch of each of
+   `frame_maps`, `corner_select` and `frame_rows` (no plain version of
+   theirs on a card tensor), compensation on kernels A and B, and the
    Sim(3)-aligned ATE over the scene's depth under its limit. The first 12 frames are run once more with
    the VO geometry on the host CPU, and the `vo` stage seconds of both are
    printed side by side. Before it, the batched SVDs of the two RANSACs are
@@ -228,6 +243,15 @@ LOCALIZE_REPLACES = "evo_tpu/solve/ransac.py:223"  # localize_camera_fused, one 
 BA_SOURCE = "evo_tpu_torch/csrc/ba_solve.cu"
 BA_REPLACES = "evo_tpu/vo/ba.py:98"  # ba_solve, a lax.while_loop of LM trips
 VO_LAUNCHES = ("evo_localize", "evo_ba_solve")
+# the frame path's kernels: (name, source, what each replaces)
+FRAME_KERNELS = (
+    ("frame_maps", "evo_tpu_torch/csrc/frame_maps.cu",
+     "evo_tpu/kernels/harris.py:25"),  # with gradients.py:21, :44, :80 (detector.py:143)
+    ("corner_select", "evo_tpu_torch/csrc/corner_select.cu",
+     "evo_tpu/kernels/harris.py:49"),  # its selection: top_k and the fixpoint (:119)
+    ("frame_rows", "evo_tpu_torch/csrc/frame_rows.cu",
+     "evo_tpu/tracker/detector.py:230"),  # _lk_init_cond over lk.py:121, :248, align.py:461
+)
 # compensation's kernels' names as `nvcc.launch` sees them, and the splat's
 COMP_LAUNCHES = ("evo_comp_tile", "evo_comp_lm_step", "evo_comp_solve", "evo_splat_", "evo_warp_")
 # operations of the alignment kernel, counted from its code: a linearization
@@ -648,10 +672,14 @@ def counts(splat) -> dict:
     """Launches of every kernel since the last `reset_counts` (comp_step:
     both of its entries; comp_step_solve: the solve entry alone; localize and
     ba_solve: VO's), and compensation's host reads of its stop flag."""
-    from evo_tpu_torch.kernels import align_step, ba_solve, comp_step, comp_tile, localize
+    from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, corner_select,
+                                       frame_maps, frame_rows, localize)
     from evo_tpu_torch.tracker import compensate
 
     return {"splat_fwd": splat.launches_fwd, "splat_bwd": splat.launches_bwd,
+            "frame_maps": frame_maps.launches_frame_maps,
+            "corner_select": corner_select.launches_corner_select,
+            "frame_rows": frame_rows.launches_frame_rows,
             "localize": localize.launches_localize, "ba_solve": ba_solve.launches_ba,
             "warp_splat_fwd": splat.launches_warp_fwd,
             "warp_splat_bwd": splat.launches_warp_bwd,
@@ -663,10 +691,12 @@ def counts(splat) -> dict:
 
 
 def reset_counts(splat) -> None:
-    from evo_tpu_torch.kernels import align_step, ba_solve, comp_step, comp_tile, localize
+    from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, corner_select,
+                                       frame_maps, frame_rows, localize)
     from evo_tpu_torch.tracker import compensate
 
-    for module in (splat, align_step, comp_step, comp_tile, compensate, localize, ba_solve):
+    for module in (splat, align_step, comp_step, comp_tile, compensate, localize, ba_solve,
+                   frame_maps, corner_select, frame_rows):
         module.reset_counts()
 
 
@@ -748,6 +778,33 @@ def phase_vo_kernels(timer, dev, label: str, dataset) -> list[dict]:
         raise AssertionError(f"ba_solve's bits depend on its cluster's size: {sizes}")
     print(f"VO kernels recorded {len(calls['localize'])} localizations and {len(calls['ba'])} "
           f"BAs, checked in {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows
+
+
+def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
+    """The frame path's three kernels against their plain versions on the
+    card at the run's shapes (`run/time_frames.py`'s `check_kernels`): the
+    scene's first frames and responses, and every `frame_rows` call of the
+    synchronous standard mode's 24 frames; each timed."""
+    from evo_tpu_torch.run import time_frames
+
+    t0 = time.perf_counter()
+    rows = time_frames.check_kernels(timer, dev, dataset)
+    for r in rows:
+        extra = dict(frame_maps=lambda: f"library within {r['library_abs_err']:.1e}",
+                     corner_select=lambda: f"{r['candidates']} candidates, {r['accepted']} "
+                     f"accepted, {r['compared']} responses the same corners; against the "
+                     f"plain path's on {r['corner_sets']['frames']} frames, sets apart "
+                     f"{r['corner_sets']['apart']} (each between responses within 1e-5); "
+                     f"clock split, cycles: {r['clock']}",
+                     frame_rows=lambda: f"{r['compared']} calls, rows apart {r['rows_apart']}, "
+                     f"LK stop-test ties {r['ties']}")[r["kernel"]]()
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        print(f"kernel {r['kernel']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} ({extra})  "
+              f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
+              f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})  "
+              f"plain {r['plain_ms'] * 1e3:.2f} us  library {lib} ({label})", flush=True)
+    print(f"frame kernels checked in {time.perf_counter() - t0:.2f} s", flush=True)
     return rows
 
 
@@ -885,7 +942,9 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
     from evo_tpu_torch.kernels import nvcc
     from evo_tpu_torch.run.evaluator import Evaluator
 
+    from evo_tpu_torch.kernels import corner_select, frame_maps, lk
     from evo_tpu_torch.solve import ransac
+    from evo_tpu_torch.tracker import align, detector
     from evo_tpu_torch.vo import ba
 
     seen, vo_seen, plain_on_card = set(), set(), []
@@ -900,7 +959,12 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
             vo_seen.add(where)
         return inner(fn, on, *args)
 
-    plain = ((ransac, "localize_camera_fused_ref"), (ba, "ba_solve_ref"))
+    # the plain versions of VO's and the frame path's kernels: none may run on
+    # a card tensor
+    plain = ((ransac, "localize_camera_fused_ref"), (ba, "ba_solve_ref"),
+             (frame_maps, "frame_maps_ref"), (corner_select, "corner_select_ref"),
+             (detector, "frame_rows_ref"), (align, "update_num_of_events_ref"),
+             (lk, "track_pyramids_ref"))
     inner_plain = [getattr(m, n) for m, n in plain]
 
     def watching(name, fn):
@@ -984,6 +1048,11 @@ def check_standard(run: dict, what: str) -> dict:
     for name in ("splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"{what} never launched {name}")
+    # the frame path: each analysed frame launched each frame kernel once
+    frame_launches = {name: launches[name] for name, _, _ in FRAME_KERNELS}
+    if set(frame_launches.values()) != {stats["frames"]}:
+        raise AssertionError(f"{what}: {stats['frames']} frames analysed, but the frame "
+                             f"kernels launched {frame_launches}")
     check_compensation_kernels(launches, what)
     stats["compensation_s"] = stats["stage_s"].get(
         "compensation", stats["stage_s"].get("compensation_worker"))
@@ -1900,8 +1969,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, localize, nvcc,
-                                       splat)
+    from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, corner_select,
+                                       frame_maps, frame_rows, localize, nvcc, splat)
     from evo_tpu_torch.run.time_splat import Timer, card
 
     t_start = time.perf_counter()
@@ -1916,15 +1985,19 @@ def main() -> int:
     libs = (splat._lib, align_step._lib, partial(align_step._lib, clocks=True), comp_tile._lib,
             partial(comp_tile._lib, clocks=True), comp_step._lib,
             partial(comp_step._lib, clocks=True), localize._lib,
-            partial(localize._lib, clocks=True), ba_solve._lib, partial(ba_solve._lib, clocks=True))
+            partial(localize._lib, clocks=True), ba_solve._lib, partial(ba_solve._lib, clocks=True),
+            frame_maps._lib, corner_select._lib, partial(corner_select._lib, clocks=True),
+            frame_rows._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
-    print(f"built the splat, alignment, compensation and VO kernels (and the clock builds) in "
+    print(f"built the splat, alignment, compensation, VO and frame kernels (and the clock "
+          f"builds) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
                  "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock", "evo_localize",
-                 "evo_localize_clock", "evo_ba_solve", "evo_ba_solve_clock"):
+                 "evo_localize_clock", "evo_ba_solve", "evo_ba_solve_clock", "evo_frame_maps",
+                 "evo_corner_select", "evo_corner_select_clock", "evo_frame_rows"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -1935,6 +2008,7 @@ def main() -> int:
     comp_rows = phase_comp_kernels(timer, dev, label, rows[0]["floor_ms"])
     dataset = simulate(dev, label)
     vo_rows = phase_vo_kernels(timer, dev, label, dataset)
+    frame_rows_ = phase_frame_kernels(timer, dev, label, dataset)
     phase_sweep(splat, timer, dev, label)
     phase_svd_methods(timer, dev, label)
     del timer
@@ -2062,6 +2136,21 @@ def main() -> int:
             **({"cholesky_library_ms": row["cholesky_library_ms"], "trips": row["trips"],
                 "orders_ms": row["orders_ms"], "cluster": row["cluster"]}
                if name == "ba_solve" else {"lm_trips": row["trips"]})))
+    # the frame path's kernels, at the run's shapes; launches on every drive
+    for row, (name, source, replaces) in zip(frame_rows_, FRAME_KERNELS):
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=vo_stats["launches"][name],
+            launches_tracker_experiment=stats["launches"][name],
+            launches_pipelined=pipe_stats["pipelined"]["launches"][name],
+            launches_pipelined_12_frames={k: pipe_stats[k]["launches"][name] for k in (
+                "pipelined_inline_vo", "pipelined_host_policy")},
+            launches_temporal_batch=temporal_drive["launches"][name],
+            launches_mesh=meshed["a"]["launches"][name],
+            launches_mesh_gloo_ranks=[r["launches"][name] for r in meshed["b"]["ranks"]],
+            max_abs_err=row["max_abs_err"], shape=row["shape"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], host_us=row["host_us"]))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,7 +90,8 @@ def _lib(clocks: bool = False):
             name, flags = "evo_align_step", ("-fmad=false",)
             if clocks:
                 name, flags = name + "_clock", flags + ("-DEVO_ALIGN_CLOCKS",)
-            _libs[clocks] = nvcc.load(name, ["align_step.cu"], _SIGNATURES, extra_flags=flags)
+            _libs[clocks] = nvcc.load(name, ["align_step.cu"], _SIGNATURES, extra_flags=flags,
+                                      headers=("row_budget.cuh",))
         return _libs[clocks]
 
 

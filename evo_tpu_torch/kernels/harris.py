@@ -1,17 +1,19 @@
 """Harris corner detection with NMS, quality filtering and min-distance
 selection — counterpart of `evo_tpu/kernels/harris.py`.
 
-The response map and NMS are convolutions and a max-pool on the device. The
-min-distance selection runs as OpenCV's serial greedy pass on the host over
-the top-K candidates: the JAX package's [K, K] fixpoint exists to avoid a
-serial loop on the TPU and reaches the same set.
+On the card, `detect_corners` is two kernel launches and no host read: the
+response comes from `kernels.frame_maps` (with the frame's other maps) and
+the selection from `kernels.corner_select`. Its plain version
+`detect_corners_ref` is the response's convolutions (`harris_response`) and
+`corner_select.corner_select_ref`, whose min-distance selection runs as
+OpenCV's serial greedy pass on the host over the top-K candidates: the JAX
+package's [K, K] fixpoint exists to avoid a serial loop on the TPU and
+reaches the same set.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 from evo_tpu_torch.kernels.gradients import SOBEL_X, SOBEL_Y, conv2same
 
@@ -31,58 +33,35 @@ def harris_response(img, block_size: int = 3, k: float = 0.04,
     return det - k * tr * tr
 
 
-def maxpool_same(x, size: int):
-    """size x size max filter with stride 1 and -inf padding ('SAME')."""
-    return F.max_pool2d(x[None, None], size, stride=1, padding=size // 2)[0, 0]
+def detect_corners_ref(img, *, max_corners: int = 100, quality_level: float = 0.01,
+                       min_distance: float = 10.0, block_size: int = 3, k: float = 0.04,
+                       border: int = 13):
+    """Plain version of `detect_corners`."""
+    from evo_tpu_torch.kernels import corner_select
 
-
-def _greedy(pos: np.ndarray, ok: np.ndarray, min_d2: float) -> np.ndarray:
-    """Accept candidates in rank order unless an accepted one lies closer
-    than min_distance (squared distance < min_d2)."""
-    accepted = np.zeros(len(pos), bool)
-    acc = []
-    for i in np.flatnonzero(ok):
-        if acc:
-            d2 = ((pos[acc] - pos[i]) ** 2).sum(-1)
-            if (d2 < min_d2).any():
-                continue
-        accepted[i] = True
-        acc.append(i)
-    return accepted
+    return corner_select.corner_select_ref(
+        harris_response(img, block_size, k), max_corners=max_corners,
+        quality_level=quality_level, min_distance=min_distance, border=border)
 
 
 def detect_corners(img, *, max_corners: int = 100, quality_level: float = 0.01,
-                   min_distance: float = 10.0, block_size: int = 3,
-                   k: float = 0.04, nms_size: int = 3, border: int = 13):
+                   min_distance: float = 10.0, block_size: int = 3, k: float = 0.04,
+                   border: int = 13):
     """goodFeaturesToTrack-equivalent corner selection on img [H, W].
 
-    Returns host numpy (xy [max_corners, 2] f32, score [max_corners] f32,
-    valid [max_corners] bool), strongest first.
-    """
-    h, w = img.shape
-    resp = harris_response(img, block_size, k)
-    is_peak = resp >= maxpool_same(resp, nms_size)
-    ys = torch.arange(h, device=img.device)[:, None]
-    xs = torch.arange(w, device=img.device)[None, :]
-    in_border = (xs >= border) & (xs < w - border) & (ys >= border) & (ys < h - border)
-    neg_inf = torch.tensor(float("-inf"), dtype=resp.dtype, device=resp.device)
-    qmax = torch.where(in_border, resp, neg_inf).max()
-    good = is_peak & in_border & (resp > quality_level * qmax) & (resp > 0)
-    scores = torch.where(good, resp, neg_inf).reshape(-1)
+    Returns tensors on the image's device (xy [max_corners, 2] f32, score
+    [max_corners] f32, valid [max_corners] bool), strongest first. An image
+    on the card takes the kernels (`frame_maps`, then `corner_select`; they
+    compute the reference's 3x3 block and k = 0.04), one on the CPU the
+    plain version."""
+    if img.device.type == "cpu":
+        return detect_corners_ref(img, max_corners=max_corners, quality_level=quality_level,
+                                  min_distance=min_distance, block_size=block_size, k=k,
+                                  border=border)
+    from evo_tpu_torch.kernels import corner_select, frame_maps
 
-    # top-K candidates; ties go to the lower flat index, like lax.top_k
-    kk = min(4 * max_corners, h * w)
-    top_scores, top_idx = torch.sort(scores, descending=True, stable=True)
-    top_scores = top_scores[:kk].cpu().numpy()
-    top_idx = top_idx[:kk].cpu().numpy()
-    pos = np.stack([top_idx % w, top_idx // w], axis=-1).astype(np.float32)
-    accepted = _greedy(pos, np.isfinite(top_scores), np.float32(min_distance * min_distance))
-
-    sel = np.flatnonzero(accepted)[:max_corners]
-    xy = np.zeros((max_corners, 2), np.float32)
-    valid = np.zeros(max_corners, bool)
-    score = np.zeros(max_corners, np.float32)
-    xy[: len(sel)] = pos[sel]
-    valid[: len(sel)] = True
-    score[: len(sel)] = top_scores[sel]
-    return xy, score, valid
+    if block_size != 3 or k != 0.04:
+        raise ValueError("the frame_maps kernel computes the 3x3 block and k = 0.04 only")
+    return corner_select.corner_select(
+        frame_maps.frame_maps(img)[1], max_corners=max_corners, quality_level=quality_level,
+        min_distance=min_distance, border=border)

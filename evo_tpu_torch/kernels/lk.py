@@ -7,6 +7,12 @@ the separable Catmull-Rom interpolant in gather form
 (`interp.sample_grid`). The iterate-translate loop stops per point after
 `num_iters` trips or once the update falls under eps 0.01 — a finished point
 is frozen exactly, as under the JAX package's vmapped `while_loop`.
+
+That is the plain version (`pyramidal_lk_ref`, `track_pyramids_ref`). On the
+card `pyramidal_lk` builds both pyramids with `kernels.frame_maps` and tracks
+every point in one launch of `kernels.frame_rows` (a block a point, all
+levels, no host read); the tracker's frame step runs that kernel with the
+pyramids it keeps (`tracker.detector.frame_apply`).
 """
 
 from __future__ import annotations
@@ -87,13 +93,10 @@ def _track_level(img0, img1, pt0, guess, radius: int, num_iters: int):
     return v, ok_grad & torch.isfinite(v).all(-1) & ok_travel
 
 
-def pyramidal_lk(img0, img1, pts, valid, *, num_levels: int = 3,
-                 radius: int = 10, num_iters: int = 30):
-    """Track points pts [N, 2] (x, y) from img0 to img1 ([H, W] each).
-
-    Returns (new_pts [N, 2], flow [N, 2], status [N] bool)."""
-    pyr0 = image_pyramid(img0, num_levels)
-    pyr1 = image_pyramid(img1, num_levels)
+def track_pyramids_ref(pyr0, pyr1, pts, valid, *, radius: int = 10, num_iters: int = 30):
+    """Track points pts [N, 2] (x, y) from pyramid pyr0 to pyr1 (level 0
+    first, as `image_pyramid` gives them). Returns (new_pts, flow, status)."""
+    num_levels = len(pyr0)
     flow = torch.zeros_like(pts)
     status = valid.clone()
     for lvl in range(num_levels - 1, -1, -1):
@@ -103,7 +106,33 @@ def pyramidal_lk(img0, img1, pts, valid, *, num_levels: int = 3,
         flow = v * scale
         status = status & ok
     new_pts = pts + flow
-    h, w = img1.shape
+    h, w = pyr1[0].shape
     in_img = ((new_pts[:, 0] >= 1) & (new_pts[:, 0] < w - 1)
               & (new_pts[:, 1] >= 1) & (new_pts[:, 1] < h - 1))
     return new_pts, flow, status & in_img
+
+
+def pyramidal_lk_ref(img0, img1, pts, valid, *, num_levels: int = 3,
+                     radius: int = 10, num_iters: int = 30):
+    """Plain version of `pyramidal_lk`."""
+    return track_pyramids_ref(image_pyramid(img0, num_levels), image_pyramid(img1, num_levels),
+                              pts, valid, radius=radius, num_iters=num_iters)
+
+
+def pyramidal_lk(img0, img1, pts, valid, *, num_levels: int = 3,
+                 radius: int = 10, num_iters: int = 30):
+    """Track points pts [N, 2] (x, y) from img0 to img1 ([H, W] each).
+
+    Returns (new_pts [N, 2], flow [N, 2], status [N] bool). Images on the
+    card take the kernels (`frame_maps` for each pyramid, one `frame_rows`
+    launch for the points), images on the CPU the plain version."""
+    if img0.device.type == "cpu":
+        return pyramidal_lk_ref(img0, img1, pts, valid, num_levels=num_levels,
+                                radius=radius, num_iters=num_iters)
+    from evo_tpu_torch.kernels import frame_maps, frame_rows
+
+    pyr0, pyr1 = (frame_maps.pyramid(im, frame_maps.frame_maps(im), num_levels)
+                  for im in (img0, img1))
+    flow, status = frame_rows.track(pyr0, pyr1, pts, valid, radius=radius,
+                                    num_iters=num_iters)
+    return pts + flow, flow, status

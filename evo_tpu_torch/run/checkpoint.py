@@ -132,6 +132,9 @@ def restore_into(ev: Evaluator, state: dict) -> Evaluator:
     tr._newest_slot = tmeta["newest_slot"]
     tr.num_images = tmeta["num_images"]
     if "tracker.prev_image" in state:
+        # the previous frame's pyramid is not stored: the tracker rebuilds it
+        # from this frame (`EventTracker.prev_pyramid`, one `frame_maps`
+        # launch on the card) when the next frame's LK needs it
         tr.prev_image = torch.tensor(np.asarray(state["tracker.prev_image"], np.float32),
                                      device=ev.device)
     tr.trajectories = {

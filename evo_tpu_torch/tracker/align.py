@@ -29,7 +29,7 @@ import math
 import torch
 
 from evo_tpu_torch.core import lie
-from evo_tpu_torch.kernels import align_step, interp
+from evo_tpu_torch.kernels import align_step, frame_rows, interp
 from evo_tpu_torch.solve.lm import lm_solve
 from evo_tpu_torch.tracker import patch_state as ps
 
@@ -262,8 +262,8 @@ def update_budgets_solved(table: ps.PatchTable, grad, ran):
     )
 
 
-def update_num_of_events(table: ps.PatchTable, grad, lost_border: int = 5):
-    """Border-lost check, then the event budget of every live patch."""
+def update_num_of_events_ref(table: ps.PatchTable, grad, lost_border: int = 5):
+    """Plain version of `update_num_of_events`."""
     border, rect_oob = _border_masks(table, grad.shape[1], grad.shape[2],
                                      lost_border)
     apply = table.alive & ~border
@@ -272,6 +272,18 @@ def update_num_of_events(table: ps.PatchTable, grad, lost_border: int = 5):
         alive=apply,
         num_of_events=_set_budgets(table, grad, rows, rect_oob),
     )
+
+
+def update_num_of_events(table: ps.PatchTable, grad, lost_border: int = 5):
+    """Border-lost check, then the event budget of every live patch against
+    the gradient pair grad [2, H, W]. A table on the card takes the
+    `frame_rows` kernel without its LK (one launch, the budget's device code
+    of `align_step`), a table on the CPU the plain version."""
+    if table.center.device.type == "cpu":
+        return update_num_of_events_ref(table, grad, lost_border)
+    if lost_border != 5:
+        raise ValueError("the frame_rows kernel takes the 5 px lost border only")
+    return frame_rows.frame_rows(table, (), (), grad, with_lk=False)
 
 
 def optimize_ready_patches(table: ps.PatchTable, grads):

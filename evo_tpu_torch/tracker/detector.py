@@ -2,11 +2,14 @@
 
 Counterpart of `evo_tpu/tracker/detector.py`:
 
-- per frame (`new_image`): Harris corners and the log/Sobel gradient pair,
-  the host policy (gradient-slot allocation and eviction, greedy
-  association, insertion of new corners), then one table update that
-  inserts the detections, bootstraps new patches by pyramidal LK and
-  refreshes the event budgets;
+- per frame (`new_image`): the frame's maps (the log/Sobel gradient pair,
+  the Harris response, the pyramid: `kernels.frame_maps`) and its corners
+  (`kernels.corner_select`), read back once with the table's mirror; the
+  host policy (gradient-slot allocation and eviction, greedy association,
+  insertion of new corners); then one table update that inserts the
+  detections and, in one `kernels.frame_rows` launch, bootstraps new
+  patches by pyramidal LK from the previous frame's pyramid (kept from its
+  frame step) and refreshes the event budgets;
 - per window of events (`process_events`): the window is cut into
   sub-batches (bounded by count and duration, scaled up for dense windows),
   packed into the 8-byte-per-event wire layout, unpacked on the device, and
@@ -44,7 +47,8 @@ from evo_tpu_torch.core import device as _device
 from evo_tpu_torch.core.transfer import HostCopy
 from evo_tpu_torch.core.types import US_PER_S
 from evo_tpu_torch.dist import mesh as dmesh
-from evo_tpu_torch.kernels import gradients, harris, lk
+from evo_tpu_torch.kernels import corner_select, frame_maps, lk
+from evo_tpu_torch.kernels import frame_rows as frame_rows_kernel
 from evo_tpu_torch.tracker import align, policy
 from evo_tpu_torch.tracker import patch_state as ps
 
@@ -100,21 +104,22 @@ def unpack_events(xyp, trel_us, offset_s):
     return ex, ey, et, ep, valid
 
 
-def compute_grads(image):
-    """Log-image + Sobel/8 gradient pair, channel-major [2, H, W]."""
-    gx, gy = gradients.sobel(gradients.log_image(image), scale=1.0 / 8.0)
-    return torch.stack([gx, gy], dim=0)
+# the frame's gradient pair by the plain version (`_compute_grads`' twin)
+compute_grads = frame_maps.gradient_pair
 
 
 def frame_analyze(img, *, max_corners, quality_level, min_distance,
                   block_size, border):
-    """Harris corners (host numpy xy [K, 2], valid [K]) and the gradient
-    pair of a frame."""
-    xy, _, valid = harris.detect_corners(
-        img, max_corners=max_corners, quality_level=quality_level,
-        min_distance=min_distance, block_size=block_size, border=border,
-    )
-    return xy, valid, compute_grads(img)
+    """A frame's corners (xy [K, 2], valid [K]) and maps (`frame_maps`:
+    gradient pair [2, H, W], Harris response, pyramid levels 1 and 2), all
+    on the image's device: two kernel launches on the card, nothing read
+    back; the plain versions on the CPU (`compute_grads`,
+    `harris.detect_corners_ref`, `gradients.image_pyramid`)."""
+    maps = frame_maps.frame_maps(img, block_size)
+    xy, _, valid = corner_select.corner_select(
+        maps[1], max_corners=max_corners, quality_level=quality_level,
+        min_distance=min_distance, border=border)
+    return xy, valid, maps
 
 
 def apply_flow_init(table: ps.PatchTable, flow_xy, status, h: int, w: int):
@@ -139,13 +144,49 @@ def apply_flow_init(table: ps.PatchTable, flow_xy, status, h: int, w: int):
     )
 
 
-def frame_apply(table: ps.PatchTable, grads, new_grad, img, prev_img, dec: dict,
-                *, with_lk: bool, lk_levels: int, lk_radius: int):
+def frame_rows_ref(table: ps.PatchTable, prev_pyr, cur_pyr, new_grad, *, with_lk: bool,
+                   radius: int = 10, num_iters: int = 30, diagnostics: bool = False):
+    """Plain version of `frame_rows`: with `with_lk`, pyramidal LK of the
+    rows alive and not initialized (`lk.track_pyramids_ref`) and
+    `apply_flow_init`; then `align.update_num_of_events_ref`. With
+    `diagnostics`, also LK's flow [P, 2] (0 where not tracked) and status."""
+    h, w = new_grad.shape[1], new_grad.shape[2]
+    uninit = table.alive & ~table.initialized
+    flow_xy = torch.zeros_like(table.center)
+    status = torch.zeros_like(uninit)
+    if with_lk and (diagnostics or bool(uninit.any())):
+        _, flow_xy, status = lk.track_pyramids_ref(prev_pyr, cur_pyr, table.center, uninit,
+                                                   radius=radius, num_iters=num_iters)
+        flow_xy = torch.where(uninit[:, None], flow_xy, torch.zeros_like(flow_xy))
+        table = apply_flow_init(table, flow_xy, status, h, w)
+    table = align.update_num_of_events_ref(table, new_grad)
+    if diagnostics:
+        return table, dict(lk_flow=flow_xy, lk_status=status)
+    return table
+
+
+def frame_rows(table: ps.PatchTable, prev_pyr, cur_pyr, new_grad, *, with_lk: bool,
+               radius: int = 10, num_iters: int = 30, diagnostics: bool = False):
+    """The frame's row updates after the insertion: LK bootstrap of the new
+    patches from pyramid prev_pyr to cur_pyr (level 0 first) with
+    `with_lk`, then the border-lost check and every live patch's event
+    budget against new_grad [2, H, W]. A table on the card takes one launch
+    of `kernels.frame_rows` (no host read decides anything), a table on the
+    CPU the plain version `frame_rows_ref`."""
+    fn = frame_rows_ref if table.center.device.type == "cpu" else frame_rows_kernel.frame_rows
+    return fn(table, prev_pyr, cur_pyr, new_grad, with_lk=with_lk, radius=radius,
+              num_iters=num_iters, diagnostics=diagnostics)
+
+
+def frame_apply(table: ps.PatchTable, grads, new_grad, cur_pyr, prev_pyr, dec: dict,
+                *, with_lk: bool, lk_radius: int):
     """The frame's table mutations: evict, write the gradient slot, insert
-    the new detections, LK-bootstrap uninitialized patches, refresh the
-    event budgets. `dec` is the policy's decision as tensors on the table's
-    device: new_mask, evict [P] bool, new_tid [P] int32, new_center [P, 2],
-    slot [] integer. Writes the new gradient pair into `grads` in place."""
+    the new detections, then `frame_rows` (LK-bootstrap uninitialized
+    patches from the previous frame's pyramid prev_pyr to this frame's
+    cur_pyr, refresh the event budgets). `dec` is the policy's decision as
+    tensors on the table's device: new_mask, evict [P] bool, new_tid [P]
+    int32, new_center [P, 2], slot [] integer. Writes the new gradient pair
+    into `grads` in place."""
     dev = grads.device
     new_mask, new_tid, new_center = dec["new_mask"], dec["new_tid"], dec["new_center"]
     slot = dec["slot"]
@@ -157,7 +198,7 @@ def frame_apply(table: ps.PatchTable, grads, new_grad, img, prev_img, dec: dict,
         track_id=torch.where(new_mask, new_tid, table.track_id),
         center=torch.where(m1, new_center, table.center),
         init_pt=torch.where(m1, new_center, table.init_pt),
-        warp=torch.where(m1, torch.tensor([1.0, 0, 0, 0], device=dev), table.warp),
+        warp=torch.where(m1, torch.eye(1, 4, device=dev), table.warp),
         flow=torch.where(new_mask, 0.0, table.flow),
         num_of_events=torch.where(
             new_mask, torch.full_like(table.num_of_events, ps.INIT_NUM_EVENTS),
@@ -169,15 +210,7 @@ def frame_apply(table: ps.PatchTable, grads, new_grad, img, prev_img, dec: dict,
         n_costs=torch.where(new_mask, torch.zeros_like(table.n_costs), table.n_costs),
         time_without_update=torch.where(new_mask, 10.0, table.time_without_update),
     )
-    if with_lk:
-        uninit = table.alive & ~table.initialized
-        if bool(uninit.any()):
-            _, flow_xy, status = lk.pyramidal_lk(
-                prev_img, img, table.center, uninit,
-                num_levels=lk_levels, radius=lk_radius,
-            )
-            table = apply_flow_init(table, flow_xy, status, img.shape[0], img.shape[1])
-    return align.update_num_of_events(table, new_grad)
+    return frame_rows(table, prev_pyr, cur_pyr, new_grad, with_lk=with_lk, radius=lk_radius)
 
 
 FRAMELOG_MIRROR = ("alive", "track_id", "center", "grad_slot", "cur_t",
@@ -187,19 +220,22 @@ ROW_DECISIONS = ("evict", "new_mask", "new_tid", "new_center")
 
 
 def fused_window_core(table: ps.PatchTable, grads, pstate: policy.PolicyState,
-                      events, img, prev_img, *, view_fn, slice_fn, with_lk, lk_levels,
+                      events, img, prev_pyr, *, view_fn, slice_fn, with_lk, lk_levels,
                       lk_radius, max_corners, quality_level, min_distance, block_size,
                       border, max_patches, association_distance):
     """One frame window with the policy on the device: the event-window scan
     (`events` = (ex, ey, et, ep, mask) [K, C], or None for a window without
-    events), Harris + gradients, `policy.frame_policy`, and the table
-    mutation. Writes the frame's gradient pair into `grads` in place.
+    events), the frame's maps and corners (`frame_analyze`),
+    `policy.frame_policy` on those corners, and the table mutation
+    (`frame_apply`, LK from the previous frame's pyramid prev_pyr; None
+    without LK). Nothing is read back on the card. Writes the frame's
+    gradient pair into `grads` in place.
     `view_fn` gives the policy its (global) view of the table and `slice_fn`
     maps the global [P] decisions onto this table's rows (`sharded_fused_step`:
     `policy.gathered_view` and the rank's block, all rows without a mesh).
-    Returns (table, pstate, stacked scan log or None, framelog), the logs of
-    this table's rows."""
-    corners_xy, corners_valid, new_grad = frame_analyze(
+    Returns (table, pstate, stacked scan log or None, framelog, the frame's
+    pyramid), the logs of this table's rows."""
+    corners_xy, corners_valid, maps = frame_analyze(
         img, max_corners=max_corners, quality_level=quality_level,
         min_distance=min_distance, block_size=block_size, border=border,
     )
@@ -210,21 +246,20 @@ def fused_window_core(table: ps.PatchTable, grads, pstate: policy.PolicyState,
         # only grow, so argmax finds it; before the first frame, slot 0)
         latest = grads[pstate.slot_birth.argmax()]
         table, stacked = align.process_window_scan(table, grads, *events, latest)
-    dev = grads.device
     dec, pstate = policy.frame_policy(
-        view_fn(table), pstate,
-        torch.as_tensor(corners_xy).to(dev), torch.as_tensor(corners_valid).to(dev),
+        view_fn(table), pstate, corners_xy, corners_valid,
         max_patches=max_patches, association_distance=association_distance,
     )
     dec = dict(slot=dec["slot"], **{k: slice_fn(dec[k]) for k in ROW_DECISIONS})
     evict_tid = torch.where(dec["evict"], table.track_id,
                             torch.full_like(table.track_id, -1))
-    table = frame_apply(table, grads, new_grad, img, prev_img, dec,
-                        with_lk=with_lk, lk_levels=lk_levels, lk_radius=lk_radius)
+    pyr = frame_maps.pyramid(img, maps, lk_levels)
+    table = frame_apply(table, grads, maps[0], pyr, prev_pyr, dec,
+                        with_lk=with_lk, lk_radius=lk_radius)
     framelog = dict(evict_tid=evict_tid, new_mask=dec["new_mask"],
                     new_tid=dec["new_tid"], new_center=dec["new_center"],
                     **{k: getattr(table, k) for k in FRAMELOG_MIRROR})
-    return table, pstate, stacked, framelog
+    return table, pstate, stacked, framelog, pyr
 
 
 def _gather_parts(group, parts: dict) -> dict:
@@ -255,20 +290,23 @@ def sharded_window_scan(group, table: ps.PatchTable, grads, ex, ey, et, ep, mask
 
 
 def sharded_fused_step(group, rows: slice, table: ps.PatchTable, grads, pstate,
-                       events, img, prev_img, **kw):
+                       events, img, prev_pyr, **kw):
     """`fused_window_core` on this rank's block `rows` of the table: the
     policy reads the view gathered over `group` (`policy.gathered_view`), so
     every rank computes the same global decisions and applies its own rows
-    of them; `grads` and `pstate` stay replicas. The scan log and the frame
-    log are gathered to the global [K, P] and [P] in one `all_gather` (the
-    JAX package's `_sharded_fused_step`). `group` None, `rows` all of them:
-    the one-device step. Returns (this rank's block, pstate, global scan log
-    or None, global frame log)."""
-    table, pstate, stacked, framelog = fused_window_core(
-        table, grads, pstate, events, img, prev_img,
+    of them (`frame_rows` runs on the rank's rows: its LK and budgets are a
+    row's own); `grads`, `pstate` and the pyramids stay replicas. The scan
+    log and the frame log are gathered to the global [K, P] and [P] in one
+    `all_gather` (the JAX package's `_sharded_fused_step`). `group` None,
+    `rows` all of them: the one-device step. Returns (this rank's block,
+    pstate, global scan log or None, global frame log, the frame's
+    pyramid)."""
+    table, pstate, stacked, framelog, pyr = fused_window_core(
+        table, grads, pstate, events, img, prev_pyr,
         view_fn=lambda t: policy.gathered_view(t, group), slice_fn=lambda a: a[rows], **kw)
     got = _gather_parts(group, dict(framelog=(framelog, 0), stacked=(stacked or {}, 1)))
-    return table, pstate, got["stacked"] if stacked is not None else None, got["framelog"]
+    return (table, pstate, got["stacked"] if stacked is not None else None, got["framelog"],
+            pyr)
 
 
 class FrameHandle(HostCopy):
@@ -298,6 +336,10 @@ class EventTracker:
             raise NotImplementedError(
                 "the port scans windows only (use_device_scan=True)")
         self.device = _device.resolve(device)
+        p = self.params
+        if self.device.type == "cuda" and (p.block_size != 3 or p.lk_levels > 3):
+            raise ValueError(f"the frame kernels take a 3x3 Harris block and at most 3 LK "
+                             f"levels, not {p.block_size} and {p.lk_levels} (the CPU takes any)")
         self.height = height
         self.width = width
         cap = self.params.capacity
@@ -322,6 +364,9 @@ class EventTracker:
         self._newest_slot = 0
         self.next_track_id = 0
         self.epoch_us: int | None = None
+        # the previous frame and its pyramid (kept from its frame step; a
+        # frame set from outside, as a checkpoint's resume does, has its
+        # pyramid rebuilt at first use)
         self.prev_image: torch.Tensor | None = None
         self.num_images = 0
         self.trajectories: dict[int, list[tuple[int, float, float]]] = {}
@@ -350,6 +395,29 @@ class EventTracker:
         self._newest_slot = int(np.argmax(self.slot_birth))
 
     # -- frame path ------------------------------------------------------
+    @property
+    def prev_image(self) -> torch.Tensor | None:
+        return self._prev_image
+
+    @prev_image.setter
+    def prev_image(self, img) -> None:
+        self._prev_image = img
+        self._prev_pyr = None
+
+    def _set_prev(self, img, pyr) -> None:
+        self._prev_image = img
+        self._prev_pyr = pyr
+
+    def prev_pyramid(self) -> tuple:
+        """The previous frame's pyramid, level 0 first: the one its frame
+        step made, or rebuilt from `prev_image` (`frame_maps`, one launch on
+        the card) where that was set from outside."""
+        if self._prev_pyr is None and self._prev_image is not None:
+            img = self._prev_image
+            self._prev_pyr = frame_maps.pyramid(img, frame_maps.frame_maps(img),
+                                                self.params.lk_levels)
+        return self._prev_pyr
+
     def _as_f32_image(self, image) -> torch.Tensor:
         img = torch.tensor(np.asarray(image), device=self.device)
         if img.dtype == torch.uint8:
@@ -362,33 +430,42 @@ class EventTracker:
         if self.epoch_us is None:
             self.epoch_us = int(t_us)
         img = self._as_f32_image(image)
-        corners_xy, corners_valid, new_grad = frame_analyze(
+        corners_xy, corners_valid, maps = frame_analyze(
             img, max_corners=p.max_patches, quality_level=p.quality_level,
             min_distance=p.min_distance, block_size=p.block_size,
             border=ps.PATCH_EXTENT + 1,
         )
-        corners = corners_xy[corners_valid]
-        mirror = self.host_mirror()
+        pulled = self._frame_read(corners_xy, corners_valid,
+                                  dict(mirror=self._mirror_fields()))
+        mirror = pulled["mirror"]
         self._archive_dead(mirror)
-        self._dispatch_frame(t_us, img, new_grad, corners, mirror)
+        self._dispatch_frame(t_us, img, maps, pulled["corners"], mirror)
         self._consume_framelog(t_us, self.host_mirror())
 
-    def _dispatch_frame(self, t_us: int, img, new_grad, corners: np.ndarray,
+    def _frame_read(self, corners_xy, corners_valid, pull: dict) -> dict:
+        """The frame's corners read back with `pull` (device tensors) in one
+        copy: `pull`'s arrays as host numpy, and `corners`, the valid ones
+        [C, 2] in rank order."""
+        pulled = HostCopy(dict(pull, xy=corners_xy, valid=corners_valid)).get()
+        pulled["corners"] = pulled.pop("xy")[pulled.pop("valid")]
+        return pulled
+
+    def _dispatch_frame(self, t_us: int, img, maps, corners: np.ndarray,
                         mirror: dict) -> None:
         """Host policy on the global mirror, then the frame's table update
-        (of this rank's rows, under a mesh)."""
+        (of this rank's rows, under a mesh) with the frame's maps."""
         p = self.params
         ctrl = self._frame_policy(t_us, corners, mirror)
         dec = {k: torch.as_tensor(v if k == "slot" else v[self._rows]).to(self.device)
                for k, v in ctrl.items()}
         self.num_images += 1
         with_lk = self.prev_image is not None and self.num_images >= 2
+        pyr = frame_maps.pyramid(img, maps, p.lk_levels)
         self.table = frame_apply(
-            self.table, self.grads, new_grad, img,
-            self.prev_image if with_lk else img, dec,
-            with_lk=with_lk, lk_levels=p.lk_levels, lk_radius=p.lk_radius,
+            self.table, self.grads, maps[0], pyr, self.prev_pyramid() if with_lk else None,
+            dec, with_lk=with_lk, lk_radius=p.lk_radius,
         )
-        self.prev_image = img
+        self._set_prev(img, pyr)
 
     def _frame_policy(self, t_us: int, corners: np.ndarray, mirror: dict) -> dict:
         """Host policy on the [P] mirror: gradient-slot allocation (evicting
@@ -520,7 +597,7 @@ class EventTracker:
         img = self._as_f32_image(image)
         if p.device_policy:
             return self._process_frame_window_fused(t_us, x, y, pol, img_t_us, img)
-        corners_xy, corners_valid, new_grad = frame_analyze(
+        corners_xy, corners_valid, maps = frame_analyze(
             img, max_corners=p.max_patches, quality_level=p.quality_level,
             min_distance=p.min_distance, block_size=p.block_size,
             border=ps.PATCH_EXTENT + 1,
@@ -531,11 +608,12 @@ class EventTracker:
             pull = self._scan_and_mirror(events)
         else:
             pull = dict(mirror=self._mirror_fields())
-        # one read serves the scan log and the pre-frame mirror
-        pulled = HostCopy(pull).get()
+        # one read serves the scan log, the pre-frame mirror and the corners
+        pulled = self._frame_read(corners_xy, corners_valid, pull)
         mirror = pulled.pop("mirror")
+        corners = pulled.pop("corners")
         self._archive_dead(mirror)
-        self._dispatch_frame(img_t_us, img, new_grad, corners_xy[corners_valid], mirror)
+        self._dispatch_frame(img_t_us, img, maps, corners, mirror)
         # the scan log is on the host already, but it is applied when the
         # handle is consumed, so that a track's scan and frame entries are
         # logged in time order whatever the number of windows in flight
@@ -584,11 +662,11 @@ class EventTracker:
                   min_distance=p.min_distance, block_size=p.block_size,
                   border=ps.PATCH_EXTENT + 1, max_patches=p.max_patches,
                   association_distance=p.association_distance)
-        prev = self.prev_image if with_lk else img
-        self.table, self.pstate, stacked, framelog = sharded_fused_step(
+        prev = self.prev_pyramid() if with_lk else None
+        self.table, self.pstate, stacked, framelog, pyr = sharded_fused_step(
             self._group, self._rows, self.table, self.grads, self.pstate, events,
             img, prev, **kw)
-        self.prev_image = img
+        self._set_prev(img, pyr)
         out = {"framelog": framelog}
         if stacked is not None:
             out["stacked"] = stacked

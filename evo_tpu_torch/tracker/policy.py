@@ -97,7 +97,9 @@ def frame_policy(table, state: PolicyState, corners_xy, corners_ok, *,
     dev = table.alive.device
     c = corners_xy.shape[0]
     i32 = torch.int32
-    big = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
+    # constants made on the device (`full`, not a copy from the host, which
+    # would wait for the device)
+    big = torch.full((), 3.4e38, dtype=torch.float32, device=dev)
 
     # gradient slot: argmax / argmin return the first of equal values, as
     # numpy's do on the host
@@ -115,8 +117,8 @@ def frame_policy(table, state: PolicyState, corners_xy, corners_ok, *,
     if c:
         d2 = ((corners_xy[None, :, :] - table.center[:, None, :]) ** 2).sum(-1)  # [P, C]
         d2 = torch.where(corners_ok[None, :], d2, big)
-        thresh2 = torch.tensor(association_distance * association_distance,
-                               dtype=torch.float32, device=dev)
+        thresh2 = torch.full((), association_distance * association_distance,
+                             dtype=torch.float32, device=dev)
         col = torch.arange(c, device=dev)
         for i in range(table.capacity):
             di = torch.where(claimed, big, d2[i])

@@ -1,10 +1,11 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile a CUDA source of
 // the package and run its kernels on the CPU, for tests without a card
 // (`tests/test_torch_align_emulated.py`, `tests/test_torch_comp_emulated.py`,
-// `tests/test_torch_vo_emulated.py`).
+// `tests/test_torch_vo_emulated.py`, `tests/test_torch_frame_emulated.py`).
 // It is not a CUDA implementation: it covers what `evo_tpu_torch/csrc/`'s
-// `align_step.cu`, `comp_tile.cu`, `comp_step.cu`, `localize.cu` and
-// `ba_solve.cu` use, and no more.
+// `align_step.cu`, `comp_tile.cu`, `comp_step.cu`, `localize.cu`,
+// `ba_solve.cu`, `frame_maps.cu`, `corner_select.cu` and `frame_rows.cu`
+// use, and no more.
 //
 // A launch runs the grid's clusters one after another (a `<<<...>>>` launch:
 // clusters of one block); the blocks of a cluster run side by side, each as
@@ -59,11 +60,12 @@ struct alignas(16) float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   dim3() = default;
-  dim3(unsigned x_) : x(x_) {}
+  dim3(unsigned x_, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 
 typedef void* cudaStream_t;
@@ -153,9 +155,10 @@ inline unsigned ballot(bool pred) {
 }
 
 // The grid's clusters of `cluster` blocks in turn, the blocks of each side by
-// side.
+// side; a grid of more than one row (grid.y) runs its rows in turn.
 template <class F>
 void launch_clusters(dim3 grid, dim3 threads, size_t smem, unsigned cluster, F&& body) {
+  for (unsigned row = 0; row < grid.y; ++row)
   for (unsigned first = 0; first < grid.x; first += cluster) {
     Cluster cl(cluster, (int)threads.x);
     std::vector<std::unique_ptr<Block>> blocks;
@@ -173,7 +176,7 @@ void launch_clusters(dim3 grid, dim3 threads, size_t smem, unsigned cluster, F&&
         pool.emplace_back([&, t, r] {
           block = cl.blocks[r];
           ::threadIdx = dim3(t);
-          ::blockIdx = dim3(first + r);
+          ::blockIdx = dim3(first + r, row);
           ::blockDim = threads;
           ::gridDim = grid;
           body();
@@ -232,11 +235,24 @@ inline unsigned __ballot_sync(unsigned, bool pred) { return evo_emu::ballot(pred
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
-inline float atomicAdd(float* at, float v) {
+template <class T>
+inline T atomicAdd(T* at, T v) {
   std::lock_guard<std::mutex> hold(evo_emu::block->atomic);
-  const float old = *at;
+  const T old = *at;
   *at = old + v;
   return old;
+}
+
+// a float's bits and back
+inline unsigned __float_as_uint(float v) {
+  unsigned u;
+  std::memcpy(&u, &v, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float v;
+  std::memcpy(&v, &u, sizeof v);
+  return v;
 }
 
 template <class T>

@@ -60,7 +60,8 @@ def _compile(tmp, *defines):
         src.write_text(_emulated_source(f.read()))
     lib = tmp / "libalign_emulated.so"
     cmd = ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-           *defines, "-I", os.path.join(HERE, "cuda_emulator"), str(src), "-o", str(lib)]
+           *defines, "-I", os.path.join(HERE, "cuda_emulator"), "-I", os.path.dirname(SOURCE),
+           str(src), "-o", str(lib)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     handle = ctypes.CDLL(str(lib))

@@ -138,9 +138,14 @@ def test_kernel_entry_refuses_cpu_tensors():
 
 
 def _c_declaration():
-    path = os.path.join(os.path.dirname(kalign.__file__), "..", "csrc", "align_step.cu")
-    with open(path) as f:
+    """csrc/align_step.cu with the package's headers it includes (those
+    named in quotes, which hold some of its constants) after it."""
+    csrc = os.path.join(os.path.dirname(kalign.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "align_step.cu")) as f:
         src = f.read()
+    for header in re.findall(r'^#include "([\w.]+)"', src, re.M):
+        with open(os.path.join(csrc, header)) as f:
+            src += f.read()
     return src
 
 

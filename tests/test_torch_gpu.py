@@ -982,3 +982,138 @@ def test_vo_on_card_takes_one_launch_a_solve(cuda_device, monkeypatch):
     assert kloc.launches_localize == vo.stage_calls["localize"] >= 9
     assert kba.launches_ba == vo.stage_calls["ba"] == len(vo.ba_log) >= 9
     assert vo.last_ate.rmse < 0.05
+
+
+# -- the frame path's kernels (frame_maps, corner_select, frame_rows) -------
+
+def _frame_pair(dev):
+    from evo_tpu_torch.run import time_frames
+
+    return [torch.from_numpy(time_frames.texture(*d)).to(dev) for d in ((0, 0), (1.7, -0.8))]
+
+
+@pytest.mark.gpu
+def test_frame_maps_kernel_matches_plain_on_card(cuda_device):
+    """`frame_maps` on the card against its plain version on the card (1e-5)
+    at the run's size and at sizes that are no multiple of its 32 px tile."""
+    from evo_tpu_torch.kernels import frame_maps as fm
+    from evo_tpu_torch.run import time_frames
+
+    imgs = _frame_pair(cuda_device) + [
+        torch.rand(97, 131, generator=torch.Generator().manual_seed(4)).to(cuda_device)]
+    fm.reset_counts()
+    for img in imgs:
+        got, ref = fm.frame_maps(img), fm.frame_maps_ref(img)
+        assert [t.shape for t in got] == [t.shape for t in ref]
+        assert time_frames.maps_error(got, ref) <= 1e-5
+    assert fm.launches_frame_maps == len(imgs)
+
+
+@pytest.mark.gpu
+def test_corner_select_kernel_matches_plain_on_card(cuda_device):
+    """`corner_select` on the card: the plain version's corners, order and
+    scores on the texture's response, on 1,728 equal peaks (the lower flat
+    index first) and on a noise response whose candidates outnumber what
+    shared memory could list."""
+    from evo_tpu_torch.kernels import corner_select as cs
+    from evo_tpu_torch.kernels import frame_maps as fm
+    from evo_tpu_torch.kernels import harris
+
+    kw = dict(max_corners=100, quality_level=0.01, min_distance=10.0, border=13)
+    ties = torch.zeros(180, 240, device=cuda_device)
+    ties[2::5, 2::5] = 1.0
+    ties[40:60:5, 100:200:5] = 2.0
+    noise = harris.harris_response(
+        torch.rand(1080, 1440, generator=torch.Generator().manual_seed(7)).to(cuda_device))
+    assert cs.candidates(noise, **kw) > 232448 // 8
+    cases = [(fm.frame_maps(img)[1], kw) for img in _frame_pair(cuda_device)]
+    cases += [(ties, dict(kw, border=0)), (ties, dict(kw, border=0, max_corners=30)),
+              (noise, kw)]
+    cs.reset_counts()
+    for resp, k in cases:
+        same = cs.same_corners(cs.corner_select(resp, **k), cs.corner_select_ref(resp, **k))
+        assert same["equal"] and same["accepted"] >= 8, same
+    assert cs.launches_corner_select == len(cases)
+
+
+@pytest.mark.gpu
+def test_frame_rows_kernel_matches_plain_on_card(cuda_device):
+    """`frame_rows` on the card against `frame_rows_ref` on the card
+    (`run.time_frames.compare_rows`): new rows near each edge of the texture
+    pair beside rows that only take their budget, and without LK; then
+    `kernels.lk.pyramidal_lk` (LK alone) against its plain version."""
+    from evo_tpu_torch.kernels import frame_maps as fm
+    from evo_tpu_torch.kernels import frame_rows as fr
+    from evo_tpu_torch.kernels import lk
+    from evo_tpu_torch.run import time_frames
+    from evo_tpu_torch.tracker import detector
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    img0, img1 = _frame_pair(cuda_device)
+    maps0, maps1 = fm.frame_maps(img0), fm.frame_maps(img1)
+    pyr0, pyr1 = fm.pyramid(img0, maps0, 3), fm.pyramid(img1, maps1, 3)
+    rng = np.random.default_rng(3)
+    fields = ps.table_to_numpy(ps.empty_table(32, device="cpu"))
+    pts = np.array([(14.0, 90.0), (225.5, 88.25), (120.0, 14.0), (119.5, 160.5),
+                    (14.5, 14.5), (225.0, 165.0), (60.5, 60.5), (4.5, 100.0)], np.float32)
+    fields["center"][:8] = pts
+    fields["center"][8:20] = rng.uniform(20, 160, (12, 2)).astype(np.float32)
+    fields["alive"][:20] = True
+    fields["initialized"][8:20] = True
+    fields["num_of_events"][:] = 75
+    table = ps.table_from_numpy(fields, device=cuda_device)
+    fr.reset_counts()
+    for with_lk in (True, False):
+        kw = dict(with_lk=with_lk, radius=10, diagnostics=True)
+        row = time_frames.compare_rows(fr.frame_rows(table, pyr0, pyr1, maps1[0], **kw),
+                                       detector.frame_rows_ref(table, pyr0, pyr1, maps1[0],
+                                                               **kw))
+        assert row["ok"] and not row["rows_apart"], row
+    assert fr.launches_frame_rows == 2
+    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    p = torch.from_numpy(pts).to(cuda_device)
+    _, flow, st = lk.pyramidal_lk(img0, img1, p, valid)
+    _, flow_r, st_r = lk.pyramidal_lk_ref(img0, img1, p, valid)
+    assert torch.equal(st, st_r) and int(st.sum()) >= 3
+    assert float((flow - flow_r)[st].abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_frame_step_reads_nothing_back_on_card(cuda_device):
+    """The frame part of the fused window (`detector.fused_window_core`
+    without events: the maps, the corners, the device policy, the table's
+    update with LK from the previous frame's pyramid and the re-budget)
+    under `torch.cuda.set_sync_debug_mode("error")`: nothing synchronizes
+    with the host. Each frame kernel launches once a frame."""
+    from evo_tpu_torch.kernels import corner_select as cs
+    from evo_tpu_torch.kernels import frame_maps as fm
+    from evo_tpu_torch.kernels import frame_rows as fr
+    from evo_tpu_torch.tracker import detector, policy
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    img0, img1 = _frame_pair(cuda_device)
+    p = detector.TrackerParams()
+    table = ps.empty_table(p.capacity, device=cuda_device)
+    grads = torch.zeros(p.capacity, 2, 180, 240, device=cuda_device)
+    pstate = policy.empty_state(p.capacity, device=cuda_device)
+    kw = dict(view_fn=lambda t: t, slice_fn=lambda a: a, lk_levels=p.lk_levels,
+              lk_radius=p.lk_radius, max_corners=p.max_patches, quality_level=p.quality_level,
+              min_distance=p.min_distance, block_size=p.block_size,
+              border=ps.PATCH_EXTENT + 1, max_patches=p.max_patches,
+              association_distance=p.association_distance)
+    torch.cuda.synchronize()
+    for m in (fm, cs, fr):
+        m.reset_counts()
+    prev = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for img in (img0, img1):
+            table, pstate, _, framelog, prev = detector.fused_window_core(
+                table, grads, pstate, None, img, prev, with_lk=prev is not None, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (fm.launches_frame_maps, cs.launches_corner_select, fr.launches_frame_rows) == \
+        (2, 2, 2)
+    alive = framelog["alive"].cpu()
+    assert int(alive.sum()) >= 10 and bool(table.initialized.cpu()[alive].any())

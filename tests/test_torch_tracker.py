@@ -204,3 +204,30 @@ def test_event_window_from_carried_state_matches_jax(plane_dataset):
         np.testing.assert_array_equal(ours[:, 0], ref[:, 0])
         np.testing.assert_allclose(ours[:, 1:], ref[:, 1:], atol=1e-3)
     assert ttr.archived_tracks == jtr.archived_tracks
+
+
+@pytest.mark.parametrize("block_size, lk_levels", [(5, 3), (3, 4)])
+def test_new_image_on_the_cpu_takes_any_block_and_depth(plane_dataset, block_size, lk_levels):
+    """The frame step on the CPU with a Harris box other than the frame
+    kernels' 3x3, or an LK pyramid deeper than their three levels (the
+    plain versions take any): after each of three frames the same rows
+    alive and initialized with the same track ids, and centres and warps
+    within 1e-3 px (LK's float32 flow, `tests/test_torch_frame.py`'s bar).
+    At 180x240 a fourth level is 23 px high, too few for LK's window and
+    its travel slack, so both trackers lose the rows there."""
+    ds = jdavis.Davis240cDataset(plane_dataset)
+    kw = dict(capacity=CAPACITY, block_size=block_size, lk_levels=lk_levels)
+    jtr = jdet.EventTracker(jdet.TrackerParams(**kw))
+    ttr = tdet.EventTracker(tdet.TrackerParams(**kw), device="cpu")
+    for k in range(3):
+        jtr.new_image(int(ds.image_t_us[k]), ds.image_u8(k))
+        ttr.new_image(int(ds.image_t_us[k]), ds.image_u8(k))
+        ref, ours = _jax_table_numpy(jtr.table), tps.table_to_numpy(ttr.table)
+        assert k > 0 or ref["alive"].sum() >= 5
+        for name in ("alive", "initialized", "track_id"):
+            np.testing.assert_array_equal(ours[name], ref[name], err_msg=name)
+        live = ref["alive"]
+        for name in ("center", "warp"):
+            np.testing.assert_allclose(ours[name][live], ref[name][live], atol=1e-3,
+                                       err_msg=name)
+    assert bool(ref["initialized"].sum() >= 5) is (lk_levels == 3)
