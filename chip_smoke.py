@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero):
    (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu, localize.cu,
    ba_solve.cu, frame_maps.cu, corner_select.cu, frame_rows.cu), one nvcc
    for each source (and one for each clock build: the alignment kernel's,
-   compensation's two, VO's two and corner_select's), all started together,
+   compensation's two, VO's two, corner_select's and frame_rows'), all
+   started together,
    and prints ptxas's register, spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
@@ -85,9 +86,15 @@ Phases (any failure raises and exits non-zero):
    printed; `frame_rows` on every call of the synchronous run's 24 frames:
    LK's status and flow (1e-3 px), the table's fields and budgets as the
    plain version's, or apart only at an LK stop-test tie, each printed;
-   each timed as above (its clock split for `corner_select`), beside its
-   bound, plain version and library (`F.conv2d`'s stacked chain;
-   `torch.topk` and the host greedy pass; none);
+   each timed as above, beside its bound, plain version and library
+   (`F.conv2d`'s stacked chain; `torch.topk` and the host greedy pass;
+   none), with ptxas's registers and spills of each; `frame_rows` also on
+   each of the 24 calls and their sum, with a digest of its outputs; the
+   clock splits of `corner_select` (cycles of one launch by stage) and of
+   `frame_rows` (the slowest row of the heaviest call), each clock build
+   held to its plain build's outputs; then the frame kernels' card tests
+   (`tests/test_torch_gpu.py -k "frame or corner or refuses"`, radius 15
+   and more than 256 corners among them) in a pytest process of their own;
 4. sweep: the forward tile kernel with 1, 2, 4 and 8 private copies of the
    image at 256 threads (8 copies: one per warp, no atomics), and at 384 and
    512 threads; the backward at 256 and 512 threads;
@@ -214,6 +221,8 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
+import subprocess
 import sys
 import tempfile
 import threading
@@ -785,7 +794,9 @@ def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
     """The frame path's three kernels against their plain versions on the
     card at the run's shapes (`run/time_frames.py`'s `check_kernels`): the
     scene's first frames and responses, and every `frame_rows` call of the
-    synchronous standard mode's 24 frames; each timed."""
+    synchronous standard mode's 24 frames, each call timed; the clock splits
+    of `corner_select` and of `frame_rows` (its slowest row on the heaviest
+    call) and ptxas's registers and spills of each."""
     from evo_tpu_torch.run import time_frames
 
     t0 = time.perf_counter()
@@ -795,8 +806,7 @@ def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
                      corner_select=lambda: f"{r['candidates']} candidates, {r['accepted']} "
                      f"accepted, {r['compared']} responses the same corners; against the "
                      f"plain path's on {r['corner_sets']['frames']} frames, sets apart "
-                     f"{r['corner_sets']['apart']} (each between responses within 1e-5); "
-                     f"clock split, cycles: {r['clock']}",
+                     f"{r['corner_sets']['apart']} (each between responses within 1e-5)",
                      frame_rows=lambda: f"{r['compared']} calls, rows apart {r['rows_apart']}, "
                      f"LK stop-test ties {r['ties']}")[r["kernel"]]()
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
@@ -804,8 +814,41 @@ def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
               f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
               f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})  "
               f"plain {r['plain_ms'] * 1e3:.2f} us  library {lib} ({label})", flush=True)
+        for name, entries in r["ptxas"].items():
+            for entry, rep in entries.items():
+                print(f"  {r['kernel']} registers ({name}, {entry}): {rep}", flush=True)
+    cs, fr = rows[1], rows[2]
+    print(f"corner_select clock split, cycles of one launch (rank 0): {cs['clock']}", flush=True)
+    print(f"frame_rows clock split, cycles of the slowest row (row {fr['clock']['row']}, "
+          f"{fr['clock']['trips']} trips) on the heaviest call: {fr['clock']['cycles']}; "
+          f"each stage's largest over the rows {fr['clock']['largest']}", flush=True)
+    print(f"frame_rows on each of the {fr['compared']} calls, device us a launch "
+          f"(LK rows): " + ", ".join(f"{u:.2f} ({n})" for u, n in zip(
+              fr["calls_us"], fr["calls_lk_rows"]))
+          + f"; together {fr['calls_sum_us']:.2f} us; outputs' digest {fr['digest']} ({label})",
+          flush=True)
     print(f"frame kernels checked in {time.perf_counter() - t0:.2f} s", flush=True)
     return rows
+
+
+def phase_frame_card_tests(label: str) -> None:
+    """The frame kernels' card tests (`tests/test_torch_gpu.py -k "frame or
+    corner or refuses"`: each kernel against its plain version on the card,
+    `frame_rows` at radius 15, `corner_select` above 256 corners, the
+    tracker's refusals at construction) in a pytest process of their own,
+    on the libraries this run built; every one must pass."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-m",
+         "gpu", os.path.join("tests", "test_torch_gpu.py"), "-k", "frame or corner or refuses"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    last = (res.stdout.strip().splitlines() or [""])[-1]
+    print(f"frame kernels' card tests: {last} in {time.perf_counter() - t0:.2f} s ({label})",
+          flush=True)
+    if res.returncode != 0 or " passed" not in last or "skipped" in last:
+        print(res.stdout[-6000:], res.stderr[-2000:], flush=True)
+        raise AssertionError(f"the frame kernels' card tests failed (rc {res.returncode})")
 
 
 def phase_main_path(splat, dev, label: str, dataset):
@@ -1987,7 +2030,7 @@ def main() -> int:
             partial(comp_step._lib, clocks=True), localize._lib,
             partial(localize._lib, clocks=True), ba_solve._lib, partial(ba_solve._lib, clocks=True),
             frame_maps._lib, corner_select._lib, partial(corner_select._lib, clocks=True),
-            frame_rows._lib)
+            frame_rows._lib, partial(frame_rows._lib, clocks=True))
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
@@ -1997,7 +2040,8 @@ def main() -> int:
     for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
                  "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock", "evo_localize",
                  "evo_localize_clock", "evo_ba_solve", "evo_ba_solve_clock", "evo_frame_maps",
-                 "evo_corner_select", "evo_corner_select_clock", "evo_frame_rows"):
+                 "evo_corner_select", "evo_corner_select_clock", "evo_frame_rows",
+                 "evo_frame_rows_clock"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -2009,6 +2053,7 @@ def main() -> int:
     dataset = simulate(dev, label)
     vo_rows = phase_vo_kernels(timer, dev, label, dataset)
     frame_rows_ = phase_frame_kernels(timer, dev, label, dataset)
+    phase_frame_card_tests(label)
     phase_sweep(splat, timer, dev, label)
     phase_svd_methods(timer, dev, label)
     del timer
@@ -2150,7 +2195,10 @@ def main() -> int:
             launches_mesh_gloo_ranks=[r["launches"][name] for r in meshed["b"]["ranks"]],
             max_abs_err=row["max_abs_err"], shape=row["shape"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], host_us=row["host_us"]))
+            library_ms=row["library_ms"], host_us=row["host_us"],
+            **({"clock": row["clock"]} if row.get("clock") else {}),
+            **({"calls_us": row["calls_us"], "calls_sum_us": row["calls_sum_us"]}
+               if name == "frame_rows" else {})))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

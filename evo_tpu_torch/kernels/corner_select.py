@@ -4,10 +4,12 @@ Counterpart of the selection in `evo_tpu/kernels/harris.py::detect_corners`
 (border mask, quality threshold, 3x3 non-maximum suppression, the top 4 x
 max_corners candidates, the greedy min-distance pass and the compaction in
 rank order; XLA device code: the JAX package has no Pallas kernel here).
-The kernel is `csrc/corner_select.cu`, one block, built at first use by
-`kernels.nvcc`; its plain PyTorch version is `corner_select_ref` (a stable
-sort on the response's device, then OpenCV's serial greedy pass on the
-host, the JAX package's [K, K] fixpoint's set). `corner_select` takes the
+The kernel is `csrc/corner_select.cu`, one thread-block cluster (the
+candidate pass spread over its blocks, the sort and the greedy pass in its
+first), built at first use by `kernels.nvcc`; its plain PyTorch version is
+`corner_select_ref` (a stable sort on the response's device, then
+OpenCV's serial greedy pass on the host, the JAX package's [K, K]
+fixpoint's set). `corner_select` takes the
 kernel for a response on the card (a failed build or launch raises) and
 the plain version for one on the CPU. Both return tensors on the
 response's device: xy [max_corners, 2] float32, score [max_corners]
@@ -49,7 +51,11 @@ _SIGNATURES = {
     "evo_corner_select": ([_P, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "evo_corner_select_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
 }
-MAX_CORNERS = 256  # csrc/corner_select.cu's kMaxCorners: the greedy warp's registers
+# the most corners a launch selects: its accepted list and K = 4 max_corners
+# keys lie in the first block's shared memory (12 bytes a key, 12 a corner;
+# 120 KB at 2,048, with room for a block's slice of a 1080x1440 bitmask)
+MAX_CORNERS = 2048
+SMEM_MAX = 232448  # the dynamic shared memory a block of the card can take
 # the clock build's stages, in csrc/corner_select.cu's `Stage` order
 STAGES = ("max", "candidates", "select", "sort", "greedy", "write", "total")
 _libs: dict[bool, ctypes.CDLL] = {}
@@ -144,6 +150,14 @@ def corner_select_ref(resp, *, max_corners: int = 100, quality_level: float = 0.
             torch.from_numpy(valid).to(dev))
 
 
+def key_counts(h: int, w: int, max_corners: int) -> tuple[int, int]:
+    """(K, Kpad): the candidates a selection ranks, min(4 max_corners, H W),
+    and the sort's length, the power of two at or above K and 32 (whole
+    warps)."""
+    k = min(4 * max_corners, h * w)
+    return k, max(32, 1 << max(k - 1, 1).bit_length())
+
+
 def run(fn, resp, launch, *, max_corners: int, quality_level: float, min_distance: float,
         border: int, clocks=None):
     """Allocate the outputs and `launch(fn, resp, H, W, border, quality,
@@ -151,8 +165,7 @@ def run(fn, resp, launch, *, max_corners: int, quality_level: float, min_distanc
     arguments without the stream; `clocks` an int64 [len(STAGES)] tensor for
     the clock build, or None). Returns (xy, score, valid)."""
     h, w = resp.shape
-    k = min(4 * max_corners, h * w)
-    kpad = 1 << max(k - 1, 1).bit_length()
+    k, kpad = key_counts(h, w, max_corners)
     out = torch.empty(3 * max_corners + (max_corners + 3) // 4, dtype=torch.float32,
                       device=resp.device)
     xy = out[:2 * max_corners].view(max_corners, 2)
@@ -185,6 +198,11 @@ def corner_select(resp, *, max_corners: int = 100, quality_level: float = 0.01,
     if not 1 <= max_corners <= MAX_CORNERS:
         raise ValueError(f"the kernel selects 1 to {MAX_CORNERS} corners, not {max_corners}")
     lib = _lib(clocks is not None)
+    h, w = resp.shape
+    smem = lib.evo_corner_select_smem(h, w, key_counts(h, w, max_corners)[1], max_corners)
+    if smem > SMEM_MAX:
+        raise ValueError(f"a {h}x{w} response with {max_corners} corners needs {smem} bytes "
+                         f"of shared memory a block, more than the card's {SMEM_MAX}")
     outs = run(lib.evo_corner_select, resp, lambda fn, *args: nvcc.launch(fn, resp, *args),
                **kw, clocks=clocks)
     _count()

@@ -27,7 +27,10 @@ import torch
 from evo_tpu_torch.kernels import nvcc
 
 MAX_LEVELS = 3
-THREADS = 640  # csrc/row_budget.cuh's kThreads: (2 radius + 1)^2 samples at most
+# csrc/frame_rows.cu's kMaxRadius: the widest LK window whose travel slack at
+# a full 64 px window (`kernels.lk`: half - radius - 1) is not negative; the
+# samples of a wider one than the block's 640 threads go a few a thread
+MAX_RADIUS = 31
 
 # Launches of the kernel since the last reset
 launches_frame_rows = 0
@@ -56,24 +59,30 @@ DIAGNOSTICS = ("lk_flow", "lk_status", "lk_trips", "lk_d2")
 # the entry's pointer array, in the order of `Args`
 POINTERS = ([n for n, _ in IN_FIELDS] + [f"prev{k}" for k in range(MAX_LEVELS)]
             + [f"cur{k}" for k in range(MAX_LEVELS)] + ["grad"]
-            + [f + "_out" for f in OUT_FIELDS] + list(DIAGNOSTICS))
+            + [f + "_out" for f in OUT_FIELDS] + list(DIAGNOSTICS) + ["clocks"])
+# the clock build's stages, in csrc/frame_rows.cu's `Stage` order
+STAGES = ("windows", "template", "sampling", "sums", "budget", "write", "total")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # the address of the pointer array, P, H, W, levels, radius, iters, with_lk, stream
     "evo_frame_rows": ([_P] + [_I] * 7 + [_P], _I),
 }
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[bool, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
-def _lib():
-    """The compiled kernel (built from csrc/frame_rows.cu at first use)."""
+def _lib(clocks: bool = False):
+    """The compiled kernel (built from csrc/frame_rows.cu at first use); with
+    `clocks`, its clock build (-DEVO_FR_CLOCKS), a library of its own."""
     with _lib_lock:
-        if "lib" not in _libs:
-            _libs["lib"] = nvcc.load("evo_frame_rows", ["frame_rows.cu"], _SIGNATURES,
-                                     extra_flags=("-fmad=false",), headers=("row_budget.cuh",))
-        return _libs["lib"]
+        if clocks not in _libs:
+            name, flags = "evo_frame_rows", ("-fmad=false",)
+            if clocks:
+                name, flags = name + "_clock", flags + ("-DEVO_FR_CLOCKS",)
+            _libs[clocks] = nvcc.load(name, ["frame_rows.cu"], _SIGNATURES, extra_flags=flags,
+                                      headers=("row_budget.cuh",))
+        return _libs[clocks]
 
 
 def _check_levels(pyr, what: str, dev) -> None:
@@ -131,7 +140,7 @@ def _outputs(p: int, dev, diagnostics: bool) -> dict:
 
 
 def frame_rows(table, prev_pyr, cur_pyr, grad, *, with_lk: bool, radius: int = 10,
-               num_iters: int = 30, diagnostics: bool = False):
+               num_iters: int = 30, diagnostics: bool = False, clocks=None):
     """One launch over the rows of `table` (a `tracker.patch_state.PatchTable`
     on the card): with `with_lk`, LK of the rows alive and not initialized
     from the previous frame's pyramid `prev_pyr` to this frame's `cur_pyr`
@@ -140,26 +149,29 @@ def frame_rows(table, prev_pyr, cur_pyr, grad, *, with_lk: bool, radius: int = 1
     [2, H, W]. Returns the table with its new fields (the input is not
     written) and, with `diagnostics`, a dict of LK's flow [P, 2] (0 where
     not tracked), status [P], trips and last |dv|^2 by level [P, 3] (level
-    0 first)."""
+    0 first). `clocks`, an int64 [P, len(STAGES)] tensor on the card,
+    launches the clock build instead, which writes each row's cycles by stage
+    there (the main path never passes it)."""
     dev = table.center.device
     if dev.type != "cuda":
         raise RuntimeError(
             f"frame_rows has no kernel for device {dev}: the plain version is "
             "tracker.detector.frame_rows_ref (tracker.detector.frame_rows picks it for a "
             "table on the CPU)")
-    out = run_rows(_lib().evo_frame_rows,
+    out = run_rows(_lib(clocks is not None).evo_frame_rows,
                    lambda fn, *args: nvcc.launch(fn, table.center, *args), table, prev_pyr,
                    cur_pyr, grad, with_lk=with_lk, radius=radius, num_iters=num_iters,
-                   diagnostics=diagnostics)
+                   diagnostics=diagnostics, clocks=clocks)
     _count()
     return out
 
 
 def run_rows(fn, launch, table, prev_pyr, cur_pyr, grad, *, with_lk: bool, radius: int,
-             num_iters: int, diagnostics: bool):
+             num_iters: int, diagnostics: bool, clocks=None):
     """`frame_rows` through the C entry `fn` and `launch(fn, *args)`, after
     the checks: the tensors on one device, of the kernel's types and
-    shapes."""
+    shapes; `clocks` an int64 [P, len(STAGES)] tensor for the clock build,
+    or None."""
     dev = table.center.device
     p = table.capacity
     ins = {}
@@ -182,8 +194,8 @@ def run_rows(fn, launch, table, prev_pyr, cur_pyr, grad, *, with_lk: bool, radiu
         if len(prev_pyr) != levels or cur_pyr[0].shape != (h, w) \
                 or prev_pyr[0].shape != (h, w):
             raise ValueError("the two pyramids must have the gradient pair's size and depth")
-        if (2 * radius + 1) ** 2 > THREADS:
-            raise ValueError(f"radius {radius}: at most {THREADS} samples a row")
+        if not 0 <= radius <= MAX_RADIUS:
+            raise ValueError(f"the kernel tracks with a radius of 0 to {MAX_RADIUS}, not {radius}")
         for k in range(levels):
             ins[f"prev{k}"] = prev_pyr[k].data_ptr()
             ins[f"cur{k}"] = cur_pyr[k].data_ptr()
@@ -192,6 +204,11 @@ def run_rows(fn, launch, table, prev_pyr, cur_pyr, grad, *, with_lk: bool, radiu
     ins.update({f"{n}_out": outs[n].data_ptr() for n in OUT_FIELDS})
     if diagnostics:
         ins.update({n: outs[n].data_ptr() for n in DIAGNOSTICS})
+    if clocks is not None:
+        if clocks.dtype != torch.int64 or clocks.shape != (p, len(STAGES)) \
+                or not clocks.is_contiguous() or clocks.device != dev:
+            raise ValueError(f"clocks must be a contiguous int64 [{p}, {len(STAGES)}] on {dev}")
+        ins["clocks"] = clocks.data_ptr()
     run(fn, launch, p, ins, h, w, levels, radius, num_iters, with_lk)
     new = table.replace(**{n: outs[n] for n in OUT_FIELDS})
     if diagnostics:

@@ -33,15 +33,22 @@ runs too) and timed: device µs a launch over 200 launches between one pair
 of CUDA events behind a busy queue (`time_splat.Timer`), host µs a launch,
 the bound (`time_comp.bound`: the bytes each must move over 3.35 TB/s
 against its float32 operations over 67 TFLOP/s), the plain version's time
-and the library time where one PyTorch call computes the same function.
+and the library time where one PyTorch call computes the same function;
+`frame_rows` also on each of the synchronous run's 24 calls, with a digest
+of its outputs; the clock splits of `corner_select` and, where the tree
+has its clock build, of `frame_rows`; ptxas's registers and spills. This
+file's checks run on another tree's package too (`--root`), so two trees
+are timed in turns in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -484,23 +491,58 @@ def record_frame_rows(dataset, frames: int) -> list:
     return calls
 
 
+def clock_frame_rows(timer, call: dict) -> dict:
+    """The clock build's split of one recorded call (`kernels.frame_rows.
+    STAGES`): one launch after REPS of them (a cold first launch reads
+    slower), held to the plain build's bits. The launch lasts as long as its
+    slowest row, so the split is that row's, beside the stages' largest
+    values over all rows."""
+    from evo_tpu_torch.kernels import frame_rows as fr
+
+    a, kw = call["args"], dict(call["kw"], diagnostics=True)
+    clk = torch.zeros((a[0].capacity, len(fr.STAGES)), dtype=torch.int64, device=a[0].center.device)
+    timer.device_ms(lambda: fr.frame_rows(*a, **kw, clocks=clk), REPS)
+    got = fr.frame_rows(*a, **kw, clocks=clk)
+    ref = fr.frame_rows(*a, **kw)
+    for name in fr.OUT_FIELDS:
+        if not torch.equal(getattr(got[0], name), getattr(ref[0], name)):
+            raise AssertionError(f"frame_rows' clock build gives another {name}")
+    for name in fr.DIAGNOSTICS:
+        if not torch.equal(got[1][name], ref[1][name]):
+            raise AssertionError(f"frame_rows' clock build gives another {name}")
+    c = clk.cpu()
+    slow = int(c[:, -1].argmax())
+    return dict(row=slow, trips=int(got[1]["lk_trips"][slow].sum()),
+                cycles=dict(zip(fr.STAGES, c[slow].tolist())),
+                largest=dict(zip(fr.STAGES, c.amax(0).tolist())))
+
+
 def check_frame_rows(timer, dev, calls: list) -> dict:
     """`frame_rows` against `frame_rows_ref` on every recorded call
-    (`compare_rows`), then timed on the call with the most LK rows."""
+    (`compare_rows`), each call timed (`calls_us`: device µs a launch over
+    REPS launches, in the run's order) and its outputs hashed in order
+    (`digest`: two trees that give the same bits on every call print the
+    same), then the call with the most LK rows timed in full and, where the
+    tree has the clock build, split."""
     from evo_tpu_torch.kernels import frame_rows as fr
     from evo_tpu_torch.run.time_comp import bound
     from evo_tpu_torch.run.time_splat import Timer
     from evo_tpu_torch.tracker import detector
 
-    rows, apart, ties = [], [], []
+    rows, apart, ties, calls_us = [], [], [], []
+    digest = hashlib.sha256()
     for k, call in enumerate(calls):
         a, kw = call["args"], dict(call["kw"], diagnostics=True)
-        row = compare_rows(fr.frame_rows(*a, **kw), detector.frame_rows_ref(*a, **kw))
+        got = fr.frame_rows(*a, **kw)
+        for t in [getattr(got[0], n) for n in fr.OUT_FIELDS] + [got[1][n] for n in fr.DIAGNOSTICS]:
+            digest.update(t.contiguous().cpu().numpy().tobytes())
+        row = compare_rows(got, detector.frame_rows_ref(*a, **kw))
         if not row["ok"]:
             raise AssertionError(f"frame_rows differs from its plain version at call {k}: {row}")
         rows.append(row)
         apart += [(k, r) for r in row["rows_apart"]]
         ties += [dict(call=k, **t) for t in row["ties"]]
+        calls_us.append(1e3 * timer.device_ms(lambda: fr.frame_rows(*a, **call["kw"]), REPS))
     best = max(range(len(calls)), key=lambda k: (rows[k]["lk_rows"], k))
     a, kw = calls[best]["args"], calls[best]["kw"]
     _, diag = fr.frame_rows(*a, **kw, diagnostics=True)
@@ -513,10 +555,36 @@ def check_frame_rows(timer, dev, calls: list) -> dict:
     return dict(kernel="frame_rows", shape=f"{a[0].capacity} rows, {rows[best]['lk_rows']} "
                 f"LK, {rows[best]['trips']} trips", compared=len(calls),
                 max_abs_err=max(r["flow_max_abs_err"] for r in rows), rows_apart=apart,
-                ties=ties, ms=timer.device_ms(run(fr.frame_rows), REPS),
+                ties=ties, digest=digest.hexdigest(), calls_us=calls_us,
+                calls_lk_rows=[r["lk_rows"] for r in rows],
+                calls_sum_us=sum(calls_us), heaviest_call=best,
+                clock=clock_frame_rows(timer, calls[best]) if hasattr(fr, "STAGES") else None,
+                ms=timer.device_ms(run(fr.frame_rows), REPS),
                 host_us=Timer.host_us(run(fr.frame_rows), REPS),
                 plain_ms=timer.device_ms(run(detector.frame_rows_ref), 20),
                 bound_ms=b_ms, bound_by=by, library_ms=None)
+
+
+def ptxas(name: str) -> dict:
+    """ptxas's report of each entry of the library `name` built in this
+    process (`kernels.nvcc.build_logs`): {entry: {registers, spill_stores,
+    spill_loads}} (bytes spilled a thread), empty where it was not built
+    here."""
+    from evo_tpu_torch.kernels import nvcc
+
+    out, entry = {}, None
+    for line in nvcc.build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            out[entry].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def check_kernels(timer, dev, dataset, frames: int = 24) -> list:
@@ -533,8 +601,12 @@ def check_kernels(timer, dev, dataset, frames: int = 24) -> list:
                              f"responses within 1e-5: {sets}")
     row = check_corner_select(timer, dev, resps, TrackerParams())
     row["corner_sets"] = sets
-    return [check_frame_maps(timer, dev, imgs[:3]), row,
+    rows = [check_frame_maps(timer, dev, imgs[:3]), row,
             check_frame_rows(timer, dev, record_frame_rows(dataset, frames))]
+    for r in rows:
+        lib = f"evo_{r['kernel']}"
+        r["ptxas"] = {name: ptxas(name) for name in (lib, lib + "_clock") if ptxas(name)}
+    return rows
 
 
 def main(argv=None) -> int:

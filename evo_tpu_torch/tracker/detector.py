@@ -337,9 +337,18 @@ class EventTracker:
                 "the port scans windows only (use_device_scan=True)")
         self.device = _device.resolve(device)
         p = self.params
-        if self.device.type == "cuda" and (p.block_size != 3 or p.lk_levels > 3):
-            raise ValueError(f"the frame kernels take a 3x3 Harris block and at most 3 LK "
-                             f"levels, not {p.block_size} and {p.lk_levels} (the CPU takes any)")
+        if self.device.type == "cuda":  # what the frame kernels take; the CPU takes any
+            if p.block_size != 3 or p.lk_levels > frame_rows_kernel.MAX_LEVELS:
+                raise ValueError(f"the frame kernels take a 3x3 Harris block and at most "
+                                 f"{frame_rows_kernel.MAX_LEVELS} LK levels, not "
+                                 f"{p.block_size} and {p.lk_levels} (the CPU takes any)")
+            if not 1 <= p.max_patches <= corner_select.MAX_CORNERS:
+                raise ValueError(f"the corner kernel selects 1 to {corner_select.MAX_CORNERS} "
+                                 f"corners, not max_patches={p.max_patches} (the CPU takes any)")
+            if not 0 <= p.lk_radius <= frame_rows_kernel.MAX_RADIUS:
+                raise ValueError(f"the LK kernel tracks with a radius of 0 to "
+                                 f"{frame_rows_kernel.MAX_RADIUS}, not lk_radius={p.lk_radius} "
+                                 "(the CPU takes any)")
         self.height = height
         self.width = width
         cap = self.params.capacity

@@ -19,8 +19,10 @@ Bars, each with its reason:
   scores within 1e-4 relative (`tests/test_torch_frame.py`'s bar). Also on
   a response with more candidates than one block's shared memory could
   list (the candidates are a bitmask there and a radix select cuts them to
-  K) and on one whose responses are equal, where the lower flat index ranks
-  first;
+  K), on one whose responses are equal, where the lower flat index ranks
+  first, on chains of candidates that block each other inside one greedy
+  step of 32 (also against `evo_tpu`'s fixpoint, exactly), and with more
+  than 256 corners; the same selection from clusters of 2 and 3 blocks;
 - `frame_rows`: LK's flow within 1e-3 px and the same status for rows near
   each image edge, on a flat patch, far motion through noise, and a smooth
   blob whose level-2 iterate travels past its slack, against the
@@ -28,7 +30,11 @@ Bars, each with its reason:
   equal to the plain version's, budgets included, warps and flows within
   1e-3 px and 1e-5 rad (where LK's float32 stop test parts the two, the
   trips there are named and printed); a row's result the same bits when
-  launched alone;
+  launched alone; at radius 15 (two samples a thread) against the plain
+  version and `evo_tpu`'s `pyramidal_lk` under the same bars; the clock
+  build the plain build's bits;
+- the tracker refuses at construction, on the card, what the kernels do
+  not take;
 - the slice: the fused frame path (`EventTracker.process_frame_window` with
   the device policy) with all three kernels emulated against `evo_tpu`'s
   tracker over the first 6 frame windows, under the whole-slice bars of
@@ -72,15 +78,21 @@ torch.set_num_threads(1)
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(kfm.__file__), "..", "csrc")
 CS_THREADS = 128  # the emulated selection's block (1024 on the card)
+CS_CLUSTER = 2  # its cluster (8 on the card): more than one block, so the DSMEM paths run
+CS_BUILD = (f"-DEVO_CS_THREADS={CS_THREADS}", f"-DEVO_CS_CLUSTER={CS_CLUSTER}")
 KW = dict(max_corners=100, quality_level=0.01, min_distance=10.0, border=13)
 
 
 def _emulated_source(src: str) -> str:
     """The source with its launch made a call of the stand-in's
-    `evo_emu::launch` and its dynamic shared memory the block's buffer."""
+    `evo_emu::launch` (a `<<<...>>>` launch) or `evo_emu::launch_ex` (a
+    `cudaLaunchKernelEx`, with its cluster attribute) and its dynamic shared
+    memory the block's buffer."""
     out, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);",
                      r"evo_emu::launch(\2, [&] { \1(\3); });", src, flags=re.S)
-    assert n == 1, "one kernel launch expected"
+    out, n_ex = re.subn(r"cudaLaunchKernelEx\(&(\w+), (\w+), (.*?)\);",
+                        r"evo_emu::launch_ex(&\1, [&] { \2(\3); });", out, flags=re.S)
+    assert n + n_ex == 1, "one kernel launch expected"
     return re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                   r"float* \1 = reinterpret_cast<float*>(evo_emu::dynamic_smem());", out)
 
@@ -115,7 +127,7 @@ def fm_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def cs_lib(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("corner_select"), "corner_select",
-                    kcs._SIGNATURES, f"-DEVO_CS_THREADS={CS_THREADS}")
+                    kcs._SIGNATURES, *CS_BUILD)
 
 
 @pytest.fixture(scope="module")
@@ -269,8 +281,10 @@ def test_corner_select_edge_responses_match_plain(cs_lib, name):
 
 
 def test_corner_select_does_not_depend_on_the_block(cs_lib, tmp_path, textures):
-    """The same selection from blocks of 64 and of 128 threads."""
-    other = _compile(tmp_path, "corner_select", kcs._SIGNATURES, "-DEVO_CS_THREADS=64")
+    """The same selection from a cluster of 2 blocks of 128 threads and
+    from one of 3 blocks of 64 (the bitmask's slices fall elsewhere)."""
+    other = _compile(tmp_path, "corner_select", kcs._SIGNATURES, "-DEVO_CS_THREADS=64",
+                     "-DEVO_CS_CLUSTER=3")
     from evo_tpu_torch.kernels import harris
 
     resp = harris.harris_response(torch.from_numpy(textures[0]))
@@ -278,12 +292,75 @@ def test_corner_select_does_not_depend_on_the_block(cs_lib, tmp_path, textures):
         assert torch.equal(a, b)
 
 
+def _chain_response():
+    """A 180 x 240 response of isolated peaks whose ranks run in chains, so
+    that candidates within min_distance (10 px) of each other fall inside
+    one greedy step of 32: along x, 8 px apart, A blocks B and B (not
+    accepted) does not block C; a chain of four (A, C accepted, B, D not);
+    one at (6, 8) px from its head, d^2 = 100 = min_distance^2 exactly, which
+    does not block; and weaker peaks beside the strongest ones, blocked from
+    a later step by the accepted list."""
+    resp = torch.zeros(180, 240)
+    score = 1000.0
+    offsets = ([(0, 0), (8, 0), (16, 0)], [(0, 0), (8, 0), (16, 0), (24, 0)],
+               [(0, 0), (6, 8)], [(0, 0), (9, 0), (9, 9)])
+    k = 0
+    for y in range(20, 160, 25):
+        for x in range(20, 200, 40):
+            for dx, dy in offsets[k % len(offsets)]:
+                resp[y + dy, x + dx] = score
+                score -= 1.0
+            k += 1
+    for y in range(20, 160, 25):  # the last step's: 4 px below each chain's head
+        for x in range(20, 200, 40):
+            resp[y + 4, x + 3] = score
+            score -= 1.0
+    return resp
+
+
+@pytest.mark.parametrize("max_corners", [100, 30])
+def test_corner_select_resolves_conflicts_inside_a_step(monkeypatch, cs_lib, max_corners):
+    """Chains of candidates that block each other inside one step of 32
+    (`_chain_response`), and with max_corners 30 the last corner accepted
+    in the middle of a step: exactly the plain version's corners, order and
+    scores, and `evo_tpu`'s `detect_corners` (its `[K, K]` fixpoint) on the
+    same response, selection moving no value (exact)."""
+    resp = _chain_response()
+    kw = dict(KW, max_corners=max_corners)
+    assert kcs.candidates(resp, **kw) > 64
+    got = select(cs_lib, resp, **kw)
+    same = _assert_same_selection(got, kcs.corner_select_ref(resp, **kw))
+    assert same["accepted"] == (max_corners if max_corners < 50 else 60), same
+    # evo_tpu's selection over the same response: its Harris step replaced,
+    # run unjitted so no trace of the image's response is reused
+    monkeypatch.setattr(jharris, "harris_response", lambda img, *a: jnp.asarray(resp.numpy()))
+    xy_j, score_j, ok_j = (np.asarray(a) for a in jharris.detect_corners.__wrapped__(
+        jnp.zeros((180, 240), jnp.float32), **kw))
+    np.testing.assert_array_equal(got[2].numpy(), ok_j)
+    np.testing.assert_array_equal(got[0].numpy(), xy_j)
+    np.testing.assert_array_equal(got[1].numpy(), score_j)
+
+
+def test_corner_select_takes_more_than_256_corners(cs_lib):
+    """max_corners 300, above the limit of the kernel's former registers,
+    on the Harris response of a 240 x 320 noise frame with a 4 px
+    min_distance, which holds more candidates than K = 1,200: the plain
+    version's corners, order and scores, all 300 accepted."""
+    from evo_tpu_torch.kernels import harris
+
+    img = torch.from_numpy(np.random.default_rng(12).random((240, 320), dtype=np.float32))
+    resp = harris.harris_response(img)
+    kw = dict(KW, max_corners=300, min_distance=4.0)
+    assert kcs.candidates(resp, **kw) > 4 * 300
+    same = _assert_same_selection(select(cs_lib, resp, **kw), kcs.corner_select_ref(resp, **kw))
+    assert same["accepted"] == 300, same
+
+
 def test_corner_select_clock_build_keeps_the_corners(tmp_path, cs_lib, textures):
     """The clock build (-DEVO_CS_CLOCKS): the plain build's corners, and its
     stages (the emulation's nanoseconds for the card's cycles) add up to its
     total."""
-    clock = _compile(tmp_path, "corner_select", kcs._SIGNATURES,
-                     f"-DEVO_CS_THREADS={CS_THREADS}", "-DEVO_CS_CLOCKS")
+    clock = _compile(tmp_path, "corner_select", kcs._SIGNATURES, *CS_BUILD, "-DEVO_CS_CLOCKS")
     from evo_tpu_torch.kernels import harris
 
     resp = harris.harris_response(torch.from_numpy(textures[0]))
@@ -378,6 +455,33 @@ def test_frame_rows_match_plain_at_the_edges(fr_lib, textures):
                                np.asarray(flow_j)[st_j], atol=1e-3)
 
 
+def test_frame_rows_at_radius_15_match_plain_and_jax(fr_lib, textures):
+    """LK at radius 15: (2 r + 1)^2 = 961 samples, more than the block's 640
+    threads, so each thread takes two; new rows near the edges and inside
+    the texture pair beside a row that only takes its budget: the plain
+    version's fields and LK at radius 15 and `evo_tpu`'s `pyramidal_lk`
+    there, under the module's LK bars (status equal, flow within 1e-3 px)."""
+    rng = np.random.default_rng(6)
+    pyr0, pyr1 = _pyramids(*textures)
+    grad = kfm.frame_maps_ref(torch.from_numpy(textures[1]))[0]
+    points = [EDGE_ROWS["left"], EDGE_ROWS["bottom_right"], EDGE_ROWS["half_up"], (120.0, 90.0)]
+    table = _lk_table(points, rng, n_other=1)
+    got = kfr.run_rows(fr_lib.evo_frame_rows, ok, table, pyr0, pyr1, grad, with_lk=True,
+                       radius=15, num_iters=30, diagnostics=True)
+    ref = tdet.frame_rows_ref(table, pyr0, pyr1, grad, with_lk=True, radius=15,
+                              diagnostics=True)
+    _assert_rows_match(got, ref, "radius 15")
+    st = got[1]["lk_status"].numpy()
+    assert st[:len(points)].sum() >= 2
+    pts = np.asarray(points, np.float32)
+    _, flow_j, st_j = jlk.pyramidal_lk(jnp.asarray(textures[0]), jnp.asarray(textures[1]),
+                                      jnp.asarray(pts), jnp.ones(len(pts), bool), radius=15)
+    st_j = np.asarray(st_j)
+    np.testing.assert_array_equal(st[:len(pts)], st_j)
+    np.testing.assert_allclose(got[1]["lk_flow"].numpy()[:len(pts)][st_j],
+                               np.asarray(flow_j)[st_j], atol=1e-3)
+
+
 def test_frame_rows_flat_patch_and_far_motion(fr_lib):
     """A frame pair with a flat region (det <= 1e-7: lost at the coarsest
     level), a noise region moved by 2 px (tracked) and one moved by 56 px,
@@ -458,6 +562,27 @@ def test_frame_rows_do_not_depend_on_the_other_rows(fr_lib, textures):
         assert torch.equal(getattr(alone, name), getattr(full, name)[:4]), name
     for name, v in adiag.items():
         assert torch.equal(v, fdiag[name][:4]), name
+
+
+def test_frame_rows_clock_build_keeps_the_outputs(tmp_path, fr_lib, textures):
+    """The clock build (-DEVO_FR_CLOCKS): the plain build's fields and LK
+    diagnostics bit for bit, and each row's stages (the emulation's
+    nanoseconds for the card's cycles) add up to its total."""
+    clock = _compile(tmp_path, "frame_rows", kfr._SIGNATURES, "-DEVO_FR_CLOCKS")
+    rng = np.random.default_rng(3)
+    pyr0, pyr1 = _pyramids(*textures)
+    grad = kfm.frame_maps_ref(torch.from_numpy(textures[1]))[0]
+    table = _lk_table(list(EDGE_ROWS.values())[:4], rng, n_other=2)
+    clk = torch.zeros((table.capacity, len(kfr.STAGES)), dtype=torch.int64)
+    got = kfr.run_rows(clock.evo_frame_rows, ok, table, pyr0, pyr1, grad, with_lk=True,
+                       radius=10, num_iters=30, diagnostics=True, clocks=clk)
+    ref = _run_rows(fr_lib, table, pyr0, pyr1, grad)
+    for name in kfr.OUT_FIELDS:
+        assert torch.equal(getattr(got[0], name), getattr(ref[0], name)), name
+    for name in kfr.DIAGNOSTICS:
+        assert torch.equal(got[1][name], ref[1][name]), name
+    assert (clk[:, :-1].sum(1) == clk[:, -1]).all() and (clk[:, -1] > 0).all()
+    assert (clk >= 0).all() and (clk[:4, kfr.STAGES.index("sampling")] > 0).all()
 
 
 def test_track_matches_plain_and_jax(fr_lib, textures):
@@ -568,6 +693,22 @@ def test_fused_frame_path_emulated_matches_jax(monkeypatch, tmp_path, fm_lib, cs
 
 
 # ---- the wrappers --------------------------------------------------------------
+
+@pytest.mark.parametrize("bad", [dict(block_size=5), dict(lk_levels=4),
+                                 dict(max_patches=kcs.MAX_CORNERS + 1),
+                                 dict(lk_radius=kfr.MAX_RADIUS + 1)],
+                         ids=["block_size", "lk_levels", "max_patches", "lk_radius"])
+def test_tracker_refuses_at_construction_what_the_card_refuses(monkeypatch, bad):
+    """`EventTracker` on the card (its device resolved as CUDA: the checks
+    come before anything is allocated) refuses at construction what the
+    frame kernels do not take, not at the first frame's launch; the CPU,
+    whose plain versions take any, builds the same tracker."""
+    params = tdet.TrackerParams(capacity=32, **bad)
+    tdet.EventTracker(params, device="cpu")
+    monkeypatch.setattr(tdet._device, "resolve", lambda device=None: torch.device("cuda"))
+    with pytest.raises(ValueError, match="the CPU takes any"):
+        tdet.EventTracker(params)
+
 
 def test_kernel_entries_take_the_plain_versions_on_the_cpu_and_refuse_elsewhere():
     """On CPU tensors `frame_maps`, `corner_select`, `harris.detect_corners`,

@@ -1079,6 +1079,76 @@ def test_frame_rows_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+def test_frame_rows_at_radius_15_on_card(cuda_device):
+    """`frame_rows` at LK radius 15, (2 r + 1)^2 = 961 samples over the
+    block's 640 threads (two a thread), against `frame_rows_ref` on the card
+    (`run.time_frames.compare_rows`: status equal, flow 1e-3 px, the fields
+    as the plain version's): new rows near each edge of the texture pair
+    and rows that only take their budget."""
+    from evo_tpu_torch.kernels import frame_maps as fm
+    from evo_tpu_torch.kernels import frame_rows as fr
+    from evo_tpu_torch.run import time_frames
+    from evo_tpu_torch.tracker import detector
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    img0, img1 = _frame_pair(cuda_device)
+    maps0, maps1 = fm.frame_maps(img0), fm.frame_maps(img1)
+    pyr0, pyr1 = fm.pyramid(img0, maps0, 3), fm.pyramid(img1, maps1, 3)
+    rng = np.random.default_rng(6)
+    fields = ps.table_to_numpy(ps.empty_table(24, device="cpu"))
+    fields["center"][:8] = [(14.0, 90.0), (225.5, 88.25), (120.0, 14.0), (119.5, 160.5),
+                            (14.5, 14.5), (225.0, 165.0), (60.5, 60.5), (150.25, 80.75)]
+    fields["center"][8:16] = rng.uniform(20, 160, (8, 2)).astype(np.float32)
+    fields["alive"][:16] = True
+    fields["initialized"][8:16] = True
+    fields["num_of_events"][:] = 75
+    table = ps.table_from_numpy(fields, device=cuda_device)
+    kw = dict(with_lk=True, radius=15, diagnostics=True)
+    fr.reset_counts()
+    row = time_frames.compare_rows(fr.frame_rows(table, pyr0, pyr1, maps1[0], **kw),
+                                   detector.frame_rows_ref(table, pyr0, pyr1, maps1[0], **kw))
+    assert row["ok"] and not row["rows_apart"] and row["lk_rows"] == 8, row
+    assert fr.launches_frame_rows == 1
+
+
+@pytest.mark.gpu
+def test_corner_select_above_256_corners_on_card(cuda_device):
+    """`corner_select` with max_corners 300 and 1,000 (above the former
+    limit of 256) on the Harris response of a 360 x 480 noise frame with a
+    4 px min_distance: the plain version's corners, order and scores."""
+    from evo_tpu_torch.kernels import corner_select as cs
+    from evo_tpu_torch.kernels import harris
+
+    resp = harris.harris_response(
+        torch.rand(360, 480, generator=torch.Generator().manual_seed(12)).to(cuda_device))
+    cs.reset_counts()
+    for m in (300, 1000):
+        kw = dict(max_corners=m, quality_level=0.01, min_distance=4.0, border=13)
+        same = cs.same_corners(cs.corner_select(resp, **kw), cs.corner_select_ref(resp, **kw))
+        assert same["equal"] and same["accepted"] > 256, same
+    assert cs.launches_corner_select == 2
+
+
+@pytest.mark.gpu
+def test_tracker_refuses_on_card_what_the_frame_kernels_refuse(cuda_device):
+    """`EventTracker` on the card refuses at construction, before any frame,
+    a Harris block other than 3, more than 3 LK levels, max_patches outside
+    1 to `corner_select.MAX_CORNERS` and lk_radius outside 0 to
+    `frame_rows.MAX_RADIUS`; it takes 300 patches and radius 15."""
+    from evo_tpu_torch.kernels import corner_select as cs
+    from evo_tpu_torch.kernels import frame_rows as fr
+    from evo_tpu_torch.tracker import detector
+
+    for bad in (dict(block_size=5), dict(lk_levels=4), dict(max_patches=cs.MAX_CORNERS + 1),
+                dict(lk_radius=fr.MAX_RADIUS + 1)):
+        with pytest.raises(ValueError):
+            detector.EventTracker(detector.TrackerParams(**bad), device=cuda_device)
+    tr = detector.EventTracker(detector.TrackerParams(capacity=512, max_patches=300,
+                                                      lk_radius=15), device=cuda_device)
+    assert tr.params.max_patches == 300
+
+
+@pytest.mark.gpu
 def test_frame_step_reads_nothing_back_on_card(cuda_device):
     """The frame part of the fused window (`detector.fused_window_core`
     without events: the maps, the corners, the device policy, the table's
