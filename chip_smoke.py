@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero):
    and the card's name and power limit;
 2. build: compiles the hand-written CUDA kernels from evo_tpu_torch/csrc
    (splat.cu, align_step.cu, comp_tile.cu, comp_step.cu, localize.cu,
-   ba_solve.cu, frame_maps.cu, corner_select.cu, frame_rows.cu), one nvcc
+   ba_solve.cu, frame_maps.cu, corner_select.cu, frame_rows.cu,
+   frame_policy.cu, route_events.cu), one nvcc
    for each source (and one for each clock build: the alignment kernel's,
    compensation's two, VO's two, corner_select's and frame_rows'), all
    started together,
@@ -92,9 +93,23 @@ Phases (any failure raises and exits non-zero):
    each of the 24 calls and their sum, with a digest of its outputs; the
    clock splits of `corner_select` (cycles of one launch by stage) and of
    `frame_rows` (the slowest row of the heaviest call), each clock build
-   held to its plain build's outputs; then the frame kernels' card tests
-   (`tests/test_torch_gpu.py -k "frame or corner or refuses"`, radius 15
-   and more than 256 corners among them) in a pytest process of their own;
+   held to its plain build's outputs; the policy's kernel
+   (`kernels.frame_policy`, one block a frame) on every policy call of the
+   default drive's 24 frames and the event routing's (`kernels.route_events`,
+   a block a patch) on every sub-batch of the tracker experiment
+   (`run/time_route.py`), each bit for bit against its plain version on the
+   card (decisions, state and `new_center`; rings, `ev_count`, `counter`),
+   timed on each call and in full on the heaviest, beside its bound and
+   plain version (no PyTorch call computes either: library none), with
+   ptxas's lines; the ATen operations the policy dispatches a frame through
+   the plain version (the parent's path) and through the kernel, and the
+   CUDA kernels, copies and operations of one frame window of the default
+   drive (`time_frames.window_launches`); then the card tests of the frame
+   path, the policy and the routing (`tests/test_torch_gpu.py -k "frame or
+   corner or refuses or route"`, radius 15, more than 256 corners, every
+   policy and routing case, the refusals at construction and a whole frame
+   window that reads nothing back among them) in a pytest process of their
+   own;
 4. sweep: the forward tile kernel with 1, 2, 4 and 8 private copies of the
    image at 256 threads (8 copies: one per warp, no atomics), and at 384 and
    512 threads; the backward at 256 and 512 threads;
@@ -140,7 +155,11 @@ Phases (any failure raises and exits non-zero):
    default drive) from the evo-vo thread on one stream of its own (inline:
    from the main thread), both workers ended
    and nothing left in flight
-   after `finish()`. Wall and stage seconds of all four runs go into one
+   after `finish()`; every standard-mode run launches `route_events` once a
+   sub-batch (as often as `align_step`) and, on the default drive (the
+   device policy), `frame_policy` once a frame (none on the synchronous
+   drive and with the host policy), and no plain version of either runs on
+   a card tensor. Wall and stage seconds of all four runs go into one
    `pipelined path` JSON line, beside the largest and the sum of the
    synchronous run's stages;
 9. tracks window: `compensate_from_tracks` on the tracker experiment's
@@ -261,6 +280,11 @@ FRAME_KERNELS = (
     ("frame_rows", "evo_tpu_torch/csrc/frame_rows.cu",
      "evo_tpu/tracker/detector.py:230"),  # _lk_init_cond over lk.py:121, :248, align.py:461
 )
+# the policy's and the routing's kernels (ROADMAP §B items 13 and 2)
+POLICY_KERNEL = ("frame_policy", "evo_tpu_torch/csrc/frame_policy.cu",
+                 "evo_tpu/tracker/policy.py:125")  # frame_policy, its fori_loop :160-166
+ROUTE_KERNEL = ("route_events", "evo_tpu_torch/csrc/route_events.cu",
+                "evo_tpu/tracker/patch_state.py:102")  # route_events (:102-187)
 # compensation's kernels' names as `nvcc.launch` sees them, and the splat's
 COMP_LAUNCHES = ("evo_comp_tile", "evo_comp_lm_step", "evo_comp_solve", "evo_splat_", "evo_warp_")
 # operations of the alignment kernel, counted from its code: a linearization
@@ -682,11 +706,14 @@ def counts(splat) -> dict:
     both of its entries; comp_step_solve: the solve entry alone; localize and
     ba_solve: VO's), and compensation's host reads of its stop flag."""
     from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, corner_select,
-                                       frame_maps, frame_rows, localize)
+                                       frame_maps, frame_policy, frame_rows, localize,
+                                       route_events)
     from evo_tpu_torch.tracker import compensate
 
     return {"splat_fwd": splat.launches_fwd, "splat_bwd": splat.launches_bwd,
             "frame_maps": frame_maps.launches_frame_maps,
+            "frame_policy": frame_policy.launches_frame_policy,
+            "route_events": route_events.launches_route_events,
             "corner_select": corner_select.launches_corner_select,
             "frame_rows": frame_rows.launches_frame_rows,
             "localize": localize.launches_localize, "ba_solve": ba_solve.launches_ba,
@@ -701,11 +728,12 @@ def counts(splat) -> dict:
 
 def reset_counts(splat) -> None:
     from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, corner_select,
-                                       frame_maps, frame_rows, localize)
+                                       frame_maps, frame_policy, frame_rows, localize,
+                                       route_events)
     from evo_tpu_torch.tracker import compensate
 
     for module in (splat, align_step, comp_step, comp_tile, compensate, localize, ba_solve,
-                   frame_maps, corner_select, frame_rows):
+                   frame_maps, corner_select, frame_rows, frame_policy, route_events):
         module.reset_counts()
 
 
@@ -808,7 +836,9 @@ def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
                      f"plain path's on {r['corner_sets']['frames']} frames, sets apart "
                      f"{r['corner_sets']['apart']} (each between responses within 1e-5)",
                      frame_rows=lambda: f"{r['compared']} calls, rows apart {r['rows_apart']}, "
-                     f"LK stop-test ties {r['ties']}")[r["kernel"]]()
+                     f"LK stop-test ties {r['ties']}",
+                     frame_policy=lambda: f"{r['compared']} calls of the default drive bit for "
+                     f"bit, digest {r['digest']}")[r["kernel"]]()
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         print(f"kernel {r['kernel']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} ({extra})  "
               f"device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
@@ -827,8 +857,42 @@ def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
               fr["calls_us"], fr["calls_lk_rows"]))
           + f"; together {fr['calls_sum_us']:.2f} us; outputs' digest {fr['digest']} ({label})",
           flush=True)
+    fp = rows[3]
+    print(f"frame_policy on each of the default drive's {fp['compared']} calls, device us a "
+          f"launch: " + ", ".join(f"{u:.2f}" for u in fp["calls_us"])
+          + f"; together {fp['calls_sum_us']:.2f} us ({label})", flush=True)
+    print(f"frame_policy dispatches a frame: plain version (the parent's path) "
+          f"{fp['dispatches']['plain']} ATen operations, the kernel's path "
+          f"{fp['dispatches']['kernel']} ({label})", flush=True)
     print(f"frame kernels checked in {time.perf_counter() - t0:.2f} s", flush=True)
     return rows
+
+
+def phase_route_kernel(timer, dev, label: str, dataset) -> dict:
+    """The routing kernel against its plain version on the card on every
+    sub-batch of the tracker experiment (`run/time_route.py`), each call
+    timed; then one frame window of the default drive counted
+    (`time_frames.window_launches`)."""
+    from evo_tpu_torch.run import time_frames, time_route
+
+    t0 = time.perf_counter()
+    r = time_route.check_route_events(timer, time_route.record_routes(dataset))
+    print(f"kernel route_events {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
+          f"({r['compared']} calls bit for bit, {r['routed']} events routed, digest "
+          f"{r['digest']})  device {r['ms'] * 1e3:.2f} us/launch over {REPS}  wrapper host "
+          f"{r['host_us']:.2f} us  bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})  "
+          f"plain {r['plain_ms'] * 1e3:.2f} us  library none ({label})", flush=True)
+    us = r["calls_us"]
+    print(f"route_events on each of the {len(us)} sub-batches: device us a launch min "
+          f"{min(us):.2f}, median {float(np.median(us)):.2f}, max {max(us):.2f}; together "
+          f"{r['calls_sum_us']:.2f} us ({label})", flush=True)
+    window = time_frames.window_launches(dataset)
+    print(f"default drive, one frame window (window {window['window']}, {window['sub_batches']} "
+          f"sub-batches): {window['kernels']} CUDA kernels, {window['copies']} copies, "
+          f"{window['dispatches']} ATen operations ({label})", flush=True)
+    print(f"routing kernel checked in {time.perf_counter() - t0:.2f} s", flush=True)
+    r["window"] = window
+    return r
 
 
 def phase_frame_card_tests(label: str) -> None:
@@ -841,7 +905,8 @@ def phase_frame_card_tests(label: str) -> None:
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-m",
-         "gpu", os.path.join("tests", "test_torch_gpu.py"), "-k", "frame or corner or refuses"],
+         "gpu", os.path.join("tests", "test_torch_gpu.py"), "-k",
+         "frame or corner or refuses or route"],
         cwd=here, capture_output=True, text=True, timeout=600)
     last = (res.stdout.strip().splitlines() or [""])[-1]
     print(f"frame kernels' card tests: {last} in {time.perf_counter() - t0:.2f} s ({label})",
@@ -914,6 +979,9 @@ def phase_main_path(splat, dev, label: str, dataset):
     for name in ("splat_fwd", "align_step"):
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["route_events"] != launches["align_step"] or launches["frame_policy"]:
+        raise AssertionError(f"the tracker experiment did not route each sub-batch through the "
+                             f"kernel once, or ran the device policy: {launches}")
     check_compensation_kernels(launches, "the main path")
     if launches["splat_bwd"] != 0:
         raise AssertionError("compensation took the unfused backward")
@@ -987,7 +1055,7 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
 
     from evo_tpu_torch.kernels import corner_select, frame_maps, lk
     from evo_tpu_torch.solve import ransac
-    from evo_tpu_torch.tracker import align, detector
+    from evo_tpu_torch.tracker import align, detector, patch_state, policy
     from evo_tpu_torch.vo import ba
 
     seen, vo_seen, plain_on_card = set(), set(), []
@@ -1007,7 +1075,8 @@ def run_standard(splat, dataset, params, max_frames=None) -> dict:
     plain = ((ransac, "localize_camera_fused_ref"), (ba, "ba_solve_ref"),
              (frame_maps, "frame_maps_ref"), (corner_select, "corner_select_ref"),
              (detector, "frame_rows_ref"), (align, "update_num_of_events_ref"),
-             (lk, "track_pyramids_ref"))
+             (lk, "track_pyramids_ref"), (policy, "frame_policy_ref"),
+             (patch_state, "route_events_ref"))
     inner_plain = [getattr(m, n) for m, n in plain]
 
     def watching(name, fn):
@@ -1096,6 +1165,15 @@ def check_standard(run: dict, what: str) -> dict:
     if set(frame_launches.values()) != {stats["frames"]}:
         raise AssertionError(f"{what}: {stats['frames']} frames analysed, but the frame "
                              f"kernels launched {frame_launches}")
+    # the event path: one routing launch a sub-batch, as the alignment step;
+    # the frame policy: one launch a frame on the device policy's drive
+    device_policy = ev.params.pipelined and ev.params.tracker.device_policy
+    if (launches["route_events"] != launches["align_step"]
+            or launches["frame_policy"] != (stats["frames"] if device_policy else 0)):
+        raise AssertionError(f"{what}: {stats['frames']} frames (device policy "
+                             f"{device_policy}), {launches['align_step']} sub-batches, but "
+                             f"route_events launched {launches['route_events']} times and "
+                             f"frame_policy {launches['frame_policy']}")
     check_compensation_kernels(launches, what)
     stats["compensation_s"] = stats["stage_s"].get(
         "compensation", stats["stage_s"].get("compensation_worker"))
@@ -1937,8 +2015,9 @@ def phase_meshed(splat, dataset, dev, label: str, default_run: dict, sync12: dic
                                  f"{r['backend']} with {r['table_rows']} rows")
         if r["trajectory"] != ranks[0]["trajectory"]:
             raise AssertionError(f"rank {r['rank']}'s trajectory.txt is not rank 0's")
-        if min(r["launches"][k] for k in ("splat_fwd", "comp_tile", "comp_step",
-                                          "align_step")) <= 0:
+        if (min(r["launches"][k] for k in ("splat_fwd", "comp_tile", "comp_step",
+                                           "align_step", "frame_policy")) <= 0
+                or r["launches"]["route_events"] != r["launches"]["align_step"]):
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}")
         if not (r["ate_over_max_depth"] is not None
                 and r["ate_over_max_depth"] < ATE_OVER_MAX_DEPTH_LIMIT
@@ -2013,7 +2092,8 @@ def main() -> int:
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
     from evo_tpu_torch.kernels import (align_step, ba_solve, comp_step, comp_tile, corner_select,
-                                       frame_maps, frame_rows, localize, nvcc, splat)
+                                       frame_maps, frame_policy, frame_rows, localize, nvcc,
+                                       route_events, splat)
     from evo_tpu_torch.run.time_splat import Timer, card
 
     t_start = time.perf_counter()
@@ -2030,18 +2110,19 @@ def main() -> int:
             partial(comp_step._lib, clocks=True), localize._lib,
             partial(localize._lib, clocks=True), ba_solve._lib, partial(ba_solve._lib, clocks=True),
             frame_maps._lib, corner_select._lib, partial(corner_select._lib, clocks=True),
-            frame_rows._lib, partial(frame_rows._lib, clocks=True))
+            frame_rows._lib, partial(frame_rows._lib, clocks=True), frame_policy._lib,
+            route_events._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
-    print(f"built the splat, alignment, compensation, VO and frame kernels (and the clock "
-          f"builds) in "
+    print(f"built the splat, alignment, compensation, VO, frame, policy and routing kernels "
+          f"(and the clock builds) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in ("evo_splat", "evo_align_step", "evo_align_step_clock", "evo_comp_tile",
                  "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock", "evo_localize",
                  "evo_localize_clock", "evo_ba_solve", "evo_ba_solve_clock", "evo_frame_maps",
                  "evo_corner_select", "evo_corner_select_clock", "evo_frame_rows",
-                 "evo_frame_rows_clock"):
+                 "evo_frame_rows_clock", "evo_frame_policy", "evo_route_events"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -2053,6 +2134,7 @@ def main() -> int:
     dataset = simulate(dev, label)
     vo_rows = phase_vo_kernels(timer, dev, label, dataset)
     frame_rows_ = phase_frame_kernels(timer, dev, label, dataset)
+    route_row = phase_route_kernel(timer, dev, label, dataset)
     phase_frame_card_tests(label)
     phase_sweep(splat, timer, dev, label)
     phase_svd_methods(timer, dev, label)
@@ -2199,6 +2281,28 @@ def main() -> int:
             **({"clock": row["clock"]} if row.get("clock") else {}),
             **({"calls_us": row["calls_us"], "calls_sum_us": row["calls_sum_us"]}
                if name == "frame_rows" else {})))
+    # the policy's and the routing's kernels: launches on every drive (the
+    # policy's main path is the default drive, the routing's every drive)
+    for row, (name, source, replaces) in ((frame_rows_[3], POLICY_KERNEL),
+                                          (route_row, ROUTE_KERNEL)):
+        main_path = pipe_stats["pipelined"] if name == "frame_policy" else stats
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=main_path["launches"][name],
+            launches_tracker_experiment=stats["launches"][name],
+            launches_standard_mode=vo_stats["launches"][name],
+            launches_pipelined=pipe_stats["pipelined"]["launches"][name],
+            launches_pipelined_12_frames={k: pipe_stats[k]["launches"][name] for k in (
+                "pipelined_inline_vo", "pipelined_host_policy")},
+            launches_temporal_batch=temporal_drive["launches"][name],
+            launches_mesh=meshed["a"]["launches"][name],
+            launches_mesh_gloo_ranks=[r["launches"][name] for r in meshed["b"]["ranks"]],
+            max_abs_err=row["max_abs_err"], shape=row["shape"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], host_us=row["host_us"], calls_us=row["calls_us"],
+            calls_sum_us=row["calls_sum_us"], digest=row["digest"],
+            **({"dispatches_a_frame": row["dispatches"]} if name == "frame_policy"
+               else {"window": row["window"]})))
     print(label, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -78,3 +78,13 @@ def launch(fn, on, *args) -> None:
             err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: launch failed with CUDA error {err}")
+
+
+def pointer(t, name: str, dtype, shape, dev) -> int:
+    """The address of tensor `t` (called `name` in the error) after the
+    checks a kernel's entry needs: `dtype`, `shape`, contiguous, on `dev`."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+            or t.device != dev:
+        raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} on {dev}, got "
+                         f"{t.dtype} {list(t.shape)} on {t.device}")
+    return t.data_ptr()

@@ -25,11 +25,17 @@ file once per tree, in turns, in one call.
 after a warm-up run of three frames (`time_comp.run_mode`): wall and stage
 seconds and the launches the tree counts.
 
+`window`: one frame window of the default drive (its fourth), the CUDA
+kernels it runs (`torch.profiler`'s device events) and the ATen operations
+it dispatches (`window_launches`); any tree since the pipelined drive.
+
 `--kernels` (a tree with the frame kernels): the three kernels
 (`kernels.frame_maps`, `kernels.corner_select`, `kernels.frame_rows`) on
-the scene's frames, each held to its plain version (`check_frame_maps`,
-`check_corner_select`, `check_frame_rows`, which `chip_smoke.py` phase 3
-runs too) and timed: device µs a launch over 200 launches between one pair
+the scene's frames and, where the tree has it, the policy's
+(`kernels.frame_policy`) on every call of the default drive's 24 frames,
+each held to its plain version (`check_frame_maps`,
+`check_corner_select`, `check_frame_rows`, `check_frame_policy`, which
+`chip_smoke.py` phase 3 runs too) and timed: device µs a launch over 200 launches between one pair
 of CUDA events behind a busy queue (`time_splat.Timer`), host µs a launch,
 the bound (`time_comp.bound`: the bytes each must move over 3.35 TB/s
 against its float32 operations over 67 TFLOP/s), the plain version's time
@@ -137,10 +143,16 @@ def split(dataset, frames: int | None = None) -> dict:
                 parts={k: dict(s=v[0], calls=v[1]) for k, v in times.items()})
 
 
+# the kernels of the tracker's frame and event paths whose launches the drives
+# count, where the tree has them
+COUNTED = ("frame_maps", "corner_select", "frame_rows", "frame_policy", "route_events")
+
+
 def frame_launches() -> dict:
-    """The frame kernels' launch counts, where the tree has them."""
+    """The frame and event paths' kernels' launch counts, where the tree has
+    them."""
     out = {}
-    for name in ("frame_maps", "corner_select", "frame_rows"):
+    for name in COUNTED:
         got = _resolve(f"kernels.{name}", f"launches_{name}")
         if got is not None:
             out[name] = getattr(*got)
@@ -148,7 +160,7 @@ def frame_launches() -> dict:
 
 
 def reset_frame_counts() -> None:
-    for name in ("frame_maps", "corner_select", "frame_rows"):
+    for name in COUNTED:
         got = _resolve(f"kernels.{name}", "reset_counts")
         if got is not None:
             getattr(*got)()
@@ -565,6 +577,142 @@ def check_frame_rows(timer, dev, calls: list) -> dict:
                 bound_ms=b_ms, bound_by=by, library_ms=None)
 
 
+def count_dispatches(fn) -> int:
+    """How many ATen operations `fn()` dispatches (views and allocations
+    included; a kernel's launch through ctypes is none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def window_launches(dataset, before: int = 3) -> dict:
+    """One frame window of the default drive (`EventTracker.
+    process_frame_window` with the device policy, then `consume_frame`) on
+    the card, after `before` windows: the CUDA kernels it runs and the
+    memory copies (`torch.profiler`'s device events), the ATen operations it
+    dispatches (`count_dispatches`, over the next window) and its
+    sub-batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from evo_tpu_torch.io.replay import FrameWindowIterator
+    from evo_tpu_torch.tracker.detector import EventTracker
+
+    tr = EventTracker(device=torch.device("cuda"))
+    wins = list(FrameWindowIterator(dataset))[:before + 2]
+
+    def step(w):
+        ev = w.events
+        t, h = tr.process_frame_window(ev.t_us, ev.x.astype(np.float64),
+                                       ev.y.astype(np.float64), ev.p.astype(np.float64),
+                                       w.image_t_us, w.image)
+        tr.consume_frame(t, h)
+        return h.k
+
+    for w in wins[:before]:
+        step(w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        k = step(wins[before])
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
+    return dict(window=before, sub_batches=k, kernels=len(dev_events) - copies, copies=copies,
+                dispatches=count_dispatches(lambda: step(wins[before + 1])))
+
+
+def record_policy(dataset, frames: int) -> list:
+    """The arguments of every `policy.frame_policy` call of the default
+    drive over the first `frames` frames, each tensor copied."""
+    from evo_tpu_torch.run.evaluator import Evaluator, EvaluatorParams
+    from evo_tpu_torch.tracker import policy
+
+    calls = []
+    inner = policy.frame_policy
+
+    def recording(view, state, corners_xy, corners_ok, **kw):
+        calls.append(dict(args=(
+            policy.TableView(**{k: getattr(view, k).clone()
+                                for k in ("alive", "center", "track_id", "grad_slot")}),
+            policy.PolicyState(**{k: getattr(state, k).clone()
+                                  for k in ("slot_birth", "next_tid", "frame_no")}),
+            corners_xy.clone(), corners_ok.clone()), kw=dict(kw)))
+        return inner(view, state, corners_xy, corners_ok, **kw)
+
+    policy.frame_policy = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ev = Evaluator(dataset, EvaluatorParams(output_dir=tmp))
+            ev.run(max_frames=frames)
+            ev.finish()
+    finally:
+        policy.frame_policy = inner
+    return calls
+
+
+def policy_work(view, corners_ok, n_slots: int) -> tuple:
+    """(bytes, operations) that a policy call's data needs: the view (17
+    bytes a row), the corners (9 bytes each), the slots' births and the
+    state in; the decisions (14 bytes a row) and the new state out; a
+    squared distance (5 operations) for each live row and valid corner."""
+    p, c = view.alive.shape[0], corners_ok.shape[0]
+    n_bytes = 17 * p + 9 * c + 4 * n_slots + 8 + 14 * p + 8 + 4 * n_slots + 8
+    return n_bytes, 5.0 * int(view.alive.sum()) * int(corners_ok.sum())
+
+
+def check_frame_policy(timer, dev, calls: list) -> dict:
+    """`frame_policy` (the kernel) against `frame_policy_ref` on the card on
+    every recorded call, bit for bit (every decision and the new state),
+    each call timed (`calls_us`) and its outputs hashed in order (`digest`);
+    the call with the most live rows timed in full; the ATen operations
+    each version dispatches a call (`dispatches`: the plain version's, the
+    parent's path, against the kernel's)."""
+    from evo_tpu_torch.kernels import frame_policy as kfp
+    from evo_tpu_torch.run.time_comp import bound
+    from evo_tpu_torch.run.time_splat import Timer
+    from evo_tpu_torch.tracker import policy
+
+    def run_kernel(call):
+        return policy.frame_policy(*call["args"], **call["kw"])
+
+    digest, calls_us = hashlib.sha256(), []
+    for k, call in enumerate(calls):
+        got, ref = run_kernel(call), policy.frame_policy_ref(*call["args"], **call["kw"])
+        outs = [got[0][n] for n in kfp.DECISIONS] + [getattr(got[1], n) for n in kfp.STATE]
+        refs = [ref[0][n] for n in kfp.DECISIONS] + [getattr(ref[1], n) for n in kfp.STATE]
+        for name, a, b in zip(kfp.DECISIONS + kfp.STATE, outs, refs):
+            if a.dtype != b.dtype or a.cpu().numpy().tobytes() != b.cpu().numpy().tobytes():
+                raise AssertionError(f"frame_policy differs from its plain version at call {k} "
+                                     f"in {name}")
+            digest.update(a.cpu().numpy().tobytes())
+        calls_us.append(1e3 * timer.device_ms(lambda: run_kernel(call), REPS))
+    best = max(range(len(calls)), key=lambda k: (int(calls[k]["args"][0].alive.sum()), k))
+    call = calls[best]
+    view, state, xy, ok = call["args"]
+    b_ms, by = bound(*policy_work(view, ok, state.slot_birth.shape[0]))
+    return dict(kernel="frame_policy",
+                shape=f"{view.alive.shape[0]} rows ({int(view.alive.sum())} live), "
+                f"{xy.shape[0]} corners ({int(ok.sum())} valid), "
+                f"{state.slot_birth.shape[0]} slots", compared=len(calls), max_abs_err=0.0,
+                digest=digest.hexdigest(), calls_us=calls_us, calls_sum_us=sum(calls_us),
+                dispatches=dict(plain=count_dispatches(
+                    lambda: policy.frame_policy_ref(*call["args"], **call["kw"])),
+                    kernel=count_dispatches(lambda: run_kernel(call))),
+                ms=timer.device_ms(lambda: run_kernel(call), REPS),
+                host_us=Timer.host_us(lambda: run_kernel(call), REPS),
+                plain_ms=timer.device_ms(
+                    lambda: policy.frame_policy_ref(*call["args"], **call["kw"]), 20),
+                bound_ms=b_ms, bound_by=by, library_ms=None)
+
+
 def ptxas(name: str) -> dict:
     """ptxas's report of each entry of the library `name` built in this
     process (`kernels.nvcc.build_logs`): {entry: {registers, spill_stores,
@@ -588,8 +736,10 @@ def ptxas(name: str) -> dict:
 
 
 def check_kernels(timer, dev, dataset, frames: int = 24) -> list:
-    """The three frame kernels' rows at the run's shapes: the scene's first
-    frames, their responses, and the synchronous run's `frame_rows` calls."""
+    """The frame kernels' rows at the run's shapes: the scene's first
+    frames, their responses, the synchronous run's `frame_rows` calls and,
+    where the tree has the policy's kernel, the default drive's policy
+    calls."""
     from evo_tpu_torch.kernels import frame_maps as fm
     from evo_tpu_torch.tracker.detector import TrackerParams
 
@@ -603,6 +753,8 @@ def check_kernels(timer, dev, dataset, frames: int = 24) -> list:
     row["corner_sets"] = sets
     rows = [check_frame_maps(timer, dev, imgs[:3]), row,
             check_frame_rows(timer, dev, record_frame_rows(dataset, frames))]
+    if _resolve("kernels.frame_policy", "frame_policy") is not None:
+        rows.append(check_frame_policy(timer, dev, record_policy(dataset, frames)))
     for r in rows:
         lib = f"evo_{r['kernel']}"
         r["ptxas"] = {name: ptxas(name) for name in (lib, lib + "_clock") if ptxas(name)}
@@ -643,6 +795,8 @@ def main(argv=None) -> int:
     split(dataset, frames=3)  # warm-up
     print(f"time_frames {args.root}: split " + json.dumps(dict(split(dataset), card=label)),
           flush=True)
+    print(f"time_frames {args.root}: window " + json.dumps(dict(window_launches(dataset),
+                                                                card=label)), flush=True)
     for row in drives(dataset, args.reps):
         keep = {k: row[k] for k in ("mode", "round", "wall_s", "stage_s", "counts")}
         print(f"time_frames {args.root}: drive " + json.dumps(dict(keep, card=label)),

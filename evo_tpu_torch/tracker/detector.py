@@ -48,6 +48,7 @@ from evo_tpu_torch.core.transfer import HostCopy
 from evo_tpu_torch.core.types import US_PER_S
 from evo_tpu_torch.dist import mesh as dmesh
 from evo_tpu_torch.kernels import corner_select, frame_maps, lk
+from evo_tpu_torch.kernels import frame_policy as frame_policy_kernel
 from evo_tpu_torch.kernels import frame_rows as frame_rows_kernel
 from evo_tpu_torch.tracker import align, policy
 from evo_tpu_torch.tracker import patch_state as ps
@@ -243,8 +244,9 @@ def fused_window_core(table: ps.PatchTable, grads, pstate: policy.PolicyState,
     if events is not None:
         # the budget update inside the scan samples the newest detection
         # frame's gradients: the slot the previous frame wrote (frame numbers
-        # only grow, so argmax finds it; before the first frame, slot 0)
-        latest = grads[pstate.slot_birth.argmax()]
+        # only grow, so argmax finds it; before the first frame, slot 0),
+        # selected on the device (nothing read back)
+        latest = grads.index_select(0, pstate.slot_birth.argmax().view(1))[0]
         table, stacked = align.process_window_scan(table, grads, *events, latest)
     dec, pstate = policy.frame_policy(
         view_fn(table), pstate, corners_xy, corners_valid,
@@ -345,6 +347,9 @@ class EventTracker:
             if not 1 <= p.max_patches <= corner_select.MAX_CORNERS:
                 raise ValueError(f"the corner kernel selects 1 to {corner_select.MAX_CORNERS} "
                                  f"corners, not max_patches={p.max_patches} (the CPU takes any)")
+            if p.capacity > frame_policy_kernel.MAX_ROWS:
+                raise ValueError(f"the policy kernel takes at most {frame_policy_kernel.MAX_ROWS} "
+                                 f"table rows, not capacity={p.capacity} (the CPU takes any)")
             if not 0 <= p.lk_radius <= frame_rows_kernel.MAX_RADIUS:
                 raise ValueError(f"the LK kernel tracks with a radius of 0 to "
                                  f"{frame_rows_kernel.MAX_RADIUS}, not lk_radius={p.lk_radius} "

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch.core.device import resolve
+from evo_tpu_torch.kernels import route_events as route_kernel
 
 PATCH_EXTENT = 12
 PATCH_SIDE = 2 * PATCH_EXTENT + 1  # 25
@@ -114,7 +115,18 @@ def is_ready(table: PatchTable):
 
 
 def route_events(table: PatchTable, ex, ey, et, ep, ev_mask) -> PatchTable:
-    """Append each event to every live patch whose current rect contains it.
+    """Append each event to every live patch whose current rect contains it
+    (`route_events_ref`'s arguments and rules): a table on the card takes
+    the kernel (`kernels.route_events`, one launch, nothing read back), a
+    table on the CPU the plain version."""
+    if table.center.device.type == "cpu":
+        return route_events_ref(table, ex, ey, et, ep, ev_mask)
+    return route_kernel.route_events(table, ex, ey, et, ep, ev_mask)
+
+
+def route_events_ref(table: PatchTable, ex, ey, et, ep, ev_mask) -> PatchTable:
+    """Plain version of `route_events`: append each event to every live
+    patch whose current rect contains it.
 
     ex, ey, et, ep: [N] f32; ev_mask: [N] bool. Events must be in time order.
     The ring keeps the newest E events per patch. Only the newest <= E hits

@@ -12,8 +12,9 @@ so both give the same decisions on the same table:
 - insertion: the k-th unclaimed corner goes into the k-th free row, bounded
   by the live cap.
 
-Everything is tensor code on the table's device and reads nothing back to
-the host, so the frame's decisions never wait for a transfer; the host
+On the card the policy is one kernel launch (`kernels.frame_policy`); on the
+CPU it is the plain version `frame_policy_ref`. Neither reads anything back
+to the host, so the frame's decisions never wait for a transfer; the host
 learns of them from the frame log it consumes later.
 """
 
@@ -25,6 +26,7 @@ import torch
 
 from evo_tpu_torch.core.device import resolve
 from evo_tpu_torch.dist.mesh import gather_rows
+from evo_tpu_torch.kernels import frame_policy as policy_kernel
 from evo_tpu_torch.tracker import patch_state as ps
 
 
@@ -83,8 +85,22 @@ def slot_refcounts(table, n_slots: int):
 
 def frame_policy(table, state: PolicyState, corners_xy, corners_ok, *,
                  max_patches: int, association_distance: float):
-    """The per-frame policy. `table` is a `ps.PatchTable` or a `TableView`;
-    corners_xy [C, 2] f32 and corners_ok [C] bool lie on its device.
+    """The per-frame policy (`frame_policy_ref`'s arguments and results): a
+    table on the card takes the kernel (`kernels.frame_policy`, one launch),
+    a table on the CPU the plain version."""
+    kw = dict(max_patches=max_patches, association_distance=association_distance)
+    if table.alive.device.type == "cpu":
+        return frame_policy_ref(table, state, corners_xy, corners_ok, **kw)
+    dec, (slot_birth, next_tid, frame_no) = policy_kernel.frame_policy(
+        table, state.slot_birth, state.next_tid, state.frame_no, corners_xy, corners_ok, **kw)
+    return dec, PolicyState(slot_birth=slot_birth, next_tid=next_tid, frame_no=frame_no)
+
+
+def frame_policy_ref(table, state: PolicyState, corners_xy, corners_ok, *,
+                     max_patches: int, association_distance: float):
+    """Plain version of `frame_policy`. `table` is a `ps.PatchTable` or a
+    `TableView`; corners_xy [C, 2] f32 and corners_ok [C] bool lie on its
+    device.
 
     Returns (decisions, new state). Decisions, all tensors:
       slot       [] int32    gradient slot for this frame

@@ -1,11 +1,12 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile a CUDA source of
 // the package and run its kernels on the CPU, for tests without a card
 // (`tests/test_torch_align_emulated.py`, `tests/test_torch_comp_emulated.py`,
-// `tests/test_torch_vo_emulated.py`, `tests/test_torch_frame_emulated.py`).
-// It is not a CUDA implementation: it covers what `evo_tpu_torch/csrc/`'s
-// `align_step.cu`, `comp_tile.cu`, `comp_step.cu`, `localize.cu`,
-// `ba_solve.cu`, `frame_maps.cu`, `corner_select.cu` and `frame_rows.cu`
-// use, and no more.
+// `tests/test_torch_vo_emulated.py`, `tests/test_torch_frame_emulated.py`,
+// `tests/test_torch_policy_emulated.py`). It is not a CUDA implementation:
+// it covers what `evo_tpu_torch/csrc/`'s `align_step.cu`, `comp_tile.cu`,
+// `comp_step.cu`, `localize.cu`, `ba_solve.cu`, `frame_maps.cu`,
+// `corner_select.cu`, `frame_rows.cu`, `frame_policy.cu` and
+// `route_events.cu` use, and no more.
 //
 // A launch runs the grid's clusters one after another (a `<<<...>>>` launch:
 // clusters of one block); the blocks of a cluster run side by side, each as

@@ -36,9 +36,11 @@ Bars, each with its reason:
 - the tracker refuses at construction, on the card, what the kernels do
   not take;
 - the slice: the fused frame path (`EventTracker.process_frame_window` with
-  the device policy) with all three kernels emulated against `evo_tpu`'s
-  tracker over the first 6 frame windows, under the whole-slice bars of
-  `tests/test_torch_tracker.py` (the same track ids, and the trajectory
+  the device policy) with all three kernels emulated, and with them the
+  policy's and the event routing's (`csrc/frame_policy.cu`,
+  `csrc/route_events.cu`, built as `tests/test_torch_policy_emulated.py`
+  builds them), against `evo_tpu`'s tracker over the first 6 frame
+  windows, under the whole-slice bars of `tests/test_torch_tracker.py` (the same track ids, and the trajectory
   points within 0.05 px: the solves' float32 noise carries the centres
   apart by ~1e-3 px a frame, as it does the plain version's) and, after
   every window, the table's decisions of
@@ -69,8 +71,11 @@ from evo_tpu_torch.kernels import corner_select as kcs
 from evo_tpu_torch.kernels import frame_maps as kfm
 from evo_tpu_torch.kernels import frame_rows as kfr
 from evo_tpu_torch.kernels import lk as tlk
+from evo_tpu_torch.kernels import frame_policy as kfp
+from evo_tpu_torch.kernels import route_events as kre
 from evo_tpu_torch.tracker import detector as tdet
 from evo_tpu_torch.tracker import patch_state as tps
+from evo_tpu_torch.tracker import policy as tpolicy
 from tests.test_torch_frame import SHIFT, _texture
 
 torch.set_num_threads(1)
@@ -133,6 +138,20 @@ def cs_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def fr_lib(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("frame_rows"), "frame_rows", kfr._SIGNATURES)
+
+
+# the policy's and the routing's builds of `tests/test_torch_policy_emulated.py`
+# (a block of one warp)
+@pytest.fixture(scope="module")
+def fp_lib(tmp_path_factory):
+    return _compile(tmp_path_factory.mktemp("frame_policy"), "frame_policy", kfp._SIGNATURES,
+                    "-DEVO_FP_THREADS=32")
+
+
+@pytest.fixture(scope="module")
+def re_lib(tmp_path_factory):
+    return _compile(tmp_path_factory.mktemp("route_events"), "route_events", kre._SIGNATURES,
+                    "-DEVO_RE_THREADS=32", "-DEVO_RE_RUN=32")
 
 
 def maps_of(lib, img):
@@ -643,10 +662,33 @@ def _emulate_frame_kernels(monkeypatch, fm_lib, cs_lib, fr_lib):
     return calls
 
 
-def test_fused_frame_path_emulated_matches_jax(monkeypatch, tmp_path, fm_lib, cs_lib, fr_lib):
+def _emulate_policy_and_routing(monkeypatch, fp_lib, re_lib):
+    """The port's policy and event routing on the CPU through their emulated
+    kernels; returns the lists their calls append to."""
+    calls = dict(policy=[], route=[])
+
+    def frame_policy(view, state, corners_xy, corners_ok, **kw):
+        calls["policy"].append(1)
+        dec, (birth, tid, fno) = kfp.run(fp_lib.evo_frame_policy, ok, view, state.slot_birth,
+                                         state.next_tid, state.frame_no, corners_xy,
+                                         corners_ok, **kw)
+        return dec, tpolicy.PolicyState(slot_birth=birth, next_tid=tid, frame_no=fno)
+
+    def route_events(table, *events):
+        calls["route"].append(1)
+        return table.replace(**kre.run(re_lib.evo_route_events, ok, table, *events))
+
+    monkeypatch.setattr(tpolicy, "frame_policy", frame_policy)
+    monkeypatch.setattr(tps, "route_events", route_events)
+    return calls
+
+
+def test_fused_frame_path_emulated_matches_jax(monkeypatch, tmp_path, fm_lib, cs_lib, fr_lib,
+                                               fp_lib, re_lib):
     """Six fused frame windows (the device policy) of the simulated scene
-    through both trackers, the port's with its frame path on the three
-    emulated kernels (one `frame_rows` launch a window): after each window
+    through both trackers, the port's with its frame path on the five
+    emulated kernels (one `frame_rows` and one `frame_policy` launch a
+    window, one `route_events` launch a sub-batch): after each window
     alive, track ids, gradient slots and budgets equal and the live centres
     within 0.05 px; at the end the final-cost log's (track, time) pairs, the
     trajectories' track ids, and every trajectory point the two share
@@ -656,6 +698,7 @@ def test_fused_frame_path_emulated_matches_jax(monkeypatch, tmp_path, fm_lib, cs
     from test_torch_cli import _simulated
 
     calls = _emulate_frame_kernels(monkeypatch, fm_lib, cs_lib, fr_lib)
+    more = _emulate_policy_and_routing(monkeypatch, fp_lib, re_lib)
     (tmp_path / "ds").mkdir()
     ds = JDataset(_simulated(tmp_path / "ds", 0.3))
     wins = list(JWindows(ds))[:6]
@@ -682,6 +725,7 @@ def test_fused_frame_path_emulated_matches_jax(monkeypatch, tmp_path, fm_lib, cs
         np.testing.assert_allclose(tm["center"][live], jm["center"][live], atol=0.05,
                                    err_msg=f"frame {k}")
     assert len(calls) == 6 and live_seen >= 10
+    assert len(more["policy"]) == 6 and len(more["route"]) >= 6
     assert [(tid, t) for tid, _, t in ttr.final_cost_log] == \
         [(tid, t) for tid, _, t in jtr.final_cost_log]
     assert len(ttr.final_cost_log) >= 100

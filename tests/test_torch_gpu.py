@@ -17,7 +17,10 @@ keyframe from one state (the card's scatter-adds and SVDs sum in another
 order), and within 1e-3 of the trajectory's extent over a free run; VO's
 kernels (`localize`, `ba_solve`) to the bars of
 `evo_tpu_torch/run/time_vo.py`'s checks, bit for bit from call to call and
-beside each other, one launch a solve."""
+beside each other, one launch a solve; the frame policy's and the event
+routing's kernels bit for bit against their plain versions on the card and
+on the CPU (`tests/torch_policy_cases.py`'s inputs, as the emulated tests
+take them)."""
 
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from evo_tpu_torch.kernels import comp_step, comp_tile, splat
 from evo_tpu_torch.tracker import compensate
 from evo_tpu_torch.vo import frontend
 from evo_tpu_torch.vo.keyframe import Keyframe
+import torch_policy_cases as policy_cases
 
 H, W = 30, 40
 
@@ -1187,3 +1191,214 @@ def test_frame_step_reads_nothing_back_on_card(cuda_device):
         (2, 2, 2)
     alive = framelog["alive"].cpu()
     assert int(alive.sum()) >= 10 and bool(table.initialized.cpu()[alive].any())
+
+
+# -- the frame policy's and the event routing's kernels ------------------------
+
+def _same_bits(a, b) -> bool:
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def _policy_inputs(case, dev):
+    from evo_tpu_torch.tracker import policy
+
+    view = policy.TableView(**{k: torch.as_tensor(np.asarray(v)).to(dev)
+                               for k, v in case["view"].items()})
+    state = policy.PolicyState(
+        slot_birth=torch.as_tensor(np.asarray(case["slot_birth"], np.int32)).to(dev),
+        next_tid=torch.tensor(1000, dtype=torch.int32, device=dev),
+        frame_no=torch.tensor(50, dtype=torch.int32, device=dev))
+    return view, state, torch.from_numpy(case["corners"]).to(dev), \
+        torch.from_numpy(case["ok"]).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(policy_cases.POLICY_CASES))
+def test_frame_policy_kernel_matches_plain_on_card(cuda_device, name):
+    """`policy.frame_policy` on the card (one launch of `csrc/frame_policy.cu`)
+    against `frame_policy_ref` on the same card tensors and on the CPU:
+    every decision and the new state bit for bit."""
+    from evo_tpu_torch.kernels import frame_policy as kfp
+    from evo_tpu_torch.tracker import policy
+
+    make, kw = policy_cases.POLICY_CASES[name]
+    kw = dict(dict(max_patches=100, association_distance=5.0), **kw)
+    case = make()
+    args = _policy_inputs(case, cuda_device)
+    n = kfp.launches_frame_policy
+    dec, state = policy.frame_policy(*args, **kw)
+    torch.cuda.synchronize()
+    assert kfp.launches_frame_policy == n + 1
+    for ref_dec, ref_state in (policy.frame_policy_ref(*args, **kw),
+                               policy.frame_policy_ref(*_policy_inputs(case, "cpu"), **kw)):
+        for k in ref_dec:
+            assert _same_bits(dec[k], ref_dec[k]), (name, k)
+        for k in ("slot_birth", "next_tid", "frame_no"):
+            assert _same_bits(getattr(state, k), getattr(ref_state, k)), (name, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(policy_cases.ROUTE_CASES) + ["table_of_128"])
+def test_route_events_kernel_matches_plain_on_card(cuda_device, name):
+    """`patch_state.route_events` on the card (one launch of
+    `csrc/route_events.cu`) against `route_events_ref` on the same card
+    tensors and on the CPU: rings, ev_count and counter bit for bit; the
+    input table is not written. `table_of_128`: a full table of 128 rows and
+    a sub-batch of 5,000 events."""
+    from evo_tpu_torch.kernels import route_events as kre
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    rng = np.random.default_rng(3)
+    if name == "table_of_128":
+        p, n = 128, 5000
+        fields = dict(alive=rng.random(p) < 0.8,
+                      center=rng.uniform(10, 230, (p, 2)).astype(np.float32),
+                      ev_count=rng.integers(0, 2000, p).astype(np.int32),
+                      counter=rng.integers(0, 40, p).astype(np.int32),
+                      **{k: rng.random((p, ps.MAX_EVENTS)).astype(np.float32)
+                         for k in kre.RING})
+        events = (rng.integers(0, 240, n).astype(np.float32),
+                  rng.integers(0, 180, n).astype(np.float32),
+                  np.sort(rng.random(n)).astype(np.float32),
+                  np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32),
+                  rng.random(n) < 0.95)
+    else:
+        fields, events = policy_cases.route_case(name, rng)
+
+    def table_on(dev):
+        t = ps.empty_table(len(fields["alive"]), device=dev)
+        return t.replace(**{k: torch.from_numpy(v).to(dev) for k, v in fields.items()})
+
+    table = table_on(cuda_device)
+    ev = [torch.from_numpy(a).to(cuda_device) for a in events]
+    n0 = kre.launches_route_events
+    got = ps.route_events(table, *ev)
+    torch.cuda.synchronize()
+    assert kre.launches_route_events == n0 + 1
+    refs = (ps.route_events_ref(table, *ev),
+            ps.route_events_ref(table_on("cpu"), *[torch.from_numpy(a) for a in events]))
+    for ref in refs:
+        for k in kre.RING + ("ev_count", "counter"):
+            assert _same_bits(getattr(got, k), getattr(ref, k)), (name, k)
+    assert _same_bits(table.ev_t, torch.from_numpy(fields["ev_t"]))
+
+
+@pytest.mark.gpu
+def test_tracker_refuses_on_card_a_capacity_beyond_the_frame_policy(cuda_device):
+    """`EventTracker` on the card refuses at construction a table of more
+    rows than the policy kernel's block holds (`frame_policy.MAX_ROWS`), and
+    takes that many."""
+    from evo_tpu_torch.kernels import frame_policy as kfp
+    from evo_tpu_torch.tracker import detector
+
+    with pytest.raises(ValueError, match="the CPU takes any"):
+        detector.EventTracker(detector.TrackerParams(capacity=kfp.MAX_ROWS + 1), height=8,
+                              width=8, device=cuda_device)
+    tr = detector.EventTracker(detector.TrackerParams(capacity=kfp.MAX_ROWS), height=8,
+                               width=8, device=cuda_device)
+    assert tr.table.capacity == kfp.MAX_ROWS
+
+
+@pytest.mark.gpu
+def test_frame_window_with_events_reads_nothing_back_on_card(cuda_device):
+    """A whole fused frame window on the card (`detector.fused_window_core`
+    with two sub-batches of events already on the card: routing, the
+    alignment step, the frame's maps and corners, the policy and the table's
+    update) under `torch.cuda.set_sync_debug_mode("error")`: nothing
+    synchronizes with the host. One `route_events` launch a sub-batch, one
+    `frame_policy` launch a frame."""
+    from evo_tpu_torch.kernels import frame_policy as kfp
+    from evo_tpu_torch.kernels import route_events as kre
+    from evo_tpu_torch.tracker import detector, policy
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    img0, img1 = _frame_pair(cuda_device)
+    p = detector.TrackerParams()
+    table = ps.empty_table(p.capacity, device=cuda_device)
+    grads = torch.zeros(p.capacity, 2, 180, 240, device=cuda_device)
+    pstate = policy.empty_state(p.capacity, device=cuda_device)
+    kw = dict(view_fn=lambda t: t, slice_fn=lambda a: a, lk_levels=p.lk_levels,
+              lk_radius=p.lk_radius, max_corners=p.max_patches, quality_level=p.quality_level,
+              min_distance=p.min_distance, block_size=p.block_size,
+              border=ps.PATCH_EXTENT + 1, max_patches=p.max_patches,
+              association_distance=p.association_distance)
+    gen = torch.Generator().manual_seed(5)
+    k, c = 2, 5000
+    events = (torch.randint(0, 240, (k, c), generator=gen).float().to(cuda_device),
+              torch.randint(0, 180, (k, c), generator=gen).float().to(cuda_device),
+              torch.sort(torch.rand(k, c, generator=gen).flatten())[0].view(k, c)
+              .to(cuda_device),
+              (torch.rand(k, c, generator=gen) < 0.5).float().mul(2).sub(1).to(cuda_device),
+              (torch.rand(k, c, generator=gen) < 0.9).to(cuda_device))
+    table, pstate, _, _, prev = detector.fused_window_core(
+        table, grads, pstate, None, img0, None, with_lk=False, **kw)
+    torch.cuda.synchronize()
+    n_route, n_policy = kre.launches_route_events, kfp.launches_frame_policy
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table, pstate, stacked, framelog, prev = detector.fused_window_core(
+            table, grads, pstate, events, img1, prev, with_lk=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (kre.launches_route_events - n_route, kfp.launches_frame_policy - n_policy) == (k, 1)
+    assert stacked["ran"].shape[0] == k and int(framelog["alive"].sum()) >= 10
+    assert int((table.ev_count > 0).sum()) >= 10
+
+
+@pytest.mark.gpu
+def test_frame_window_from_carried_state_on_card_matches_cpu(cuda_device):
+    """`tests/test_torch_pipeline.py::test_frame_window_from_carried_state_matches_jax`'s
+    decisions on the card: a tracker's state after two fused frame windows on
+    the CPU is carried to a tracker on the card and to one on the CPU, and
+    both process the third window (on the card its policy and routing are
+    the kernels): alive, track ids, gradient slots, budgets and the policy's
+    state equal, live centres within 1e-3 px."""
+    from evo_tpu_torch.io import sim
+    from evo_tpu_torch.io.replay import FrameWindowIterator
+    from evo_tpu_torch.kernels import frame_policy as kfp
+    from evo_tpu_torch.kernels import route_events as kre
+    from evo_tpu_torch.tracker import detector
+    from evo_tpu_torch.tracker import patch_state as ps
+
+    ds = sim.to_dataset(sim.EventCameraSimulator(
+        sim.SimParams(duration_s=0.2, fps=20.0, seed=2), device="cpu").generate())
+    wins = list(FrameWindowIterator(ds))[:3]
+    params = detector.TrackerParams(capacity=32)
+    src = detector.EventTracker(params, device="cpu")
+
+    def step(tr, w):
+        ev = w.events
+        t, h = tr.process_frame_window(
+            ev.t_us, ev.x.astype(np.float64), ev.y.astype(np.float64),
+            ev.p.astype(np.float64), w.image_t_us, w.image)
+        return tr.consume_frame(t, h)
+
+    for w in wins[:2]:
+        step(src, w)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        tr = detector.EventTracker(params, device=dev)
+        tr.table = ps.table_from_numpy(ps.table_to_numpy(src.table), device=dev)
+        tr.load_numpy_state(src.grads.numpy(), src.slot_refcount, src.slot_birth,
+                            src.next_track_id, src.epoch_us,
+                            pstate={k: getattr(src.pstate, k).numpy()
+                                    for k in ("slot_birth", "next_tid", "frame_no")})
+        tr.num_images = src.num_images
+        tr.prev_image = src.prev_image.to(dev)
+        tr.trajectories = {k: list(v) for k, v in src.trajectories.items()}
+        tr.archived_tracks = set(src.archived_tracks)
+        n = (kre.launches_route_events, kfp.launches_frame_policy)
+        runs[str(dev)] = (step(tr, wins[2]), tr,
+                          (kre.launches_route_events - n[0], kfp.launches_frame_policy - n[1]))
+    (cm, ctr, c_launches), (gm, gtr, g_launches) = runs["cpu"], runs[str(cuda_device)]
+    assert c_launches == (0, 0) and g_launches[0] >= 1 and g_launches[1] == 1
+    for name in ("alive", "track_id", "grad_slot", "num_of_events"):
+        np.testing.assert_array_equal(gm[name], cm[name], err_msg=name)
+    for k in ("slot_birth", "next_tid", "frame_no"):
+        assert _same_bits(getattr(gtr.pstate, k), getattr(ctr.pstate, k)), k
+    live = cm["alive"]
+    assert live.sum() >= 10
+    np.testing.assert_allclose(gm["center"][live], cm["center"][live], atol=1e-3)
+    assert gtr.next_track_id == ctr.next_track_id

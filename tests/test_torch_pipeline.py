@@ -39,6 +39,7 @@ from evo_tpu_torch.tracker import motion_field as tmf
 from evo_tpu_torch.tracker import patch_state as tps
 from evo_tpu_torch.tracker import policy as tpolicy
 from evo_tpu_torch.vo.frontend import VoParams
+from torch_policy_cases import random_table
 
 torch.set_num_threads(1)
 
@@ -46,30 +47,6 @@ P = jps.MAX_PATCHES
 
 
 # -- (a) the frame policy ---------------------------------------------------
-
-def _random_table(rng, n_alive=40, n_corners=60, exhaust_slots=False):
-    """A randomized control state: the four table fields the policy reads,
-    host slot bookkeeping consistent with them, corners."""
-    alive = np.zeros(P, bool)
-    alive[rng.choice(P, n_alive, replace=False)] = True
-    center = rng.uniform(15, 160, (P, 2)).astype(np.float32)
-    track_id = np.where(alive, rng.permutation(P).astype(np.int32), -1).astype(np.int32)
-    grad_slot = rng.integers(0, 8, P).astype(np.int32)
-    if exhaust_slots:  # every slot referenced by a live patch: eviction
-        alive = np.ones(P, bool)
-        grad_slot = (np.arange(P) % jps.GRAD_SLOTS).astype(np.int32)
-        track_id = np.arange(P, dtype=np.int32)
-    refcount = np.bincount(grad_slot[alive], minlength=jps.GRAD_SLOTS).astype(np.int64)
-    slot_birth = np.where(refcount > 0, rng.integers(0, 50, jps.GRAD_SLOTS), -1)
-    corners = rng.uniform(14, 165, (n_corners, 2)).astype(np.float32)
-    # some corners within reach of live patches, so association has work
-    near = rng.choice(np.flatnonzero(alive), min(10, n_corners, int(alive.sum())), replace=False)
-    corners[: len(near)] = center[near] + rng.uniform(-3, 3, (len(near), 2)).astype(np.float32)
-    ok = rng.random(n_corners) < 0.9
-    return dict(alive=alive, center=center, track_id=track_id, grad_slot=grad_slot,
-                refcount=refcount, slot_birth=slot_birth.astype(np.int64),
-                corners=corners, ok=ok)
-
 
 def _three_policies(s):
     """(port host policy, port device policy + state, JAX device policy)."""
@@ -120,7 +97,7 @@ def _assert_same_decisions(dec, ref):
 ], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
 def test_frame_policy_matches_jax_and_host(case):
     case = dict(case)
-    s = _random_table(np.random.default_rng(case.pop("seed")), **case)
+    s = random_table(np.random.default_rng(case.pop("seed")), **case)
     host, dec, new_state, jdec = _three_policies(s)
     _assert_same_decisions(dec, jdec)
     _assert_same_decisions(dec, host)
@@ -139,7 +116,7 @@ def test_frame_policy_matches_jax_and_host(case):
 
 
 def test_slot_refcounts_matches_jax():
-    s = _random_table(np.random.default_rng(9))
+    s = random_table(np.random.default_rng(9))
     fields = {k: s[k] for k in ("alive", "center", "track_id", "grad_slot")}
     ours = tpolicy.slot_refcounts(
         tpolicy.TableView(**{k: torch.from_numpy(v) for k, v in fields.items()}), P)

@@ -2,7 +2,8 @@
 on one written dataset: which solve first takes other inputs.
 
     env JAX_PLATFORMS=cpu python tests/torch_solve_trace.py OUT.json \
-        [--scene shapes|plane] [--duration S] [--control centre budget]
+        [--scene shapes|plane] [--duration S] [--control centre budget] \
+        [--replay-float64 STEP:ROW ...]
 
 It writes one quality row's scene once (the port's simulator, seed 1):
 `shapes` (the `shapes` row: 48 polygons, 6 s) or `plane` (the `plane_age`
@@ -34,9 +35,11 @@ stop test, at one trip's accept or stop test, or within the solve's own
 response to a rounding-sized change of one cost: `trip_decisions`), and both packages' trajectories scored by both scorers.
 `--control centre` runs `evo_tpu` alone once more with every solved centre
 raised by one float32 ulp (`budget`: every raw budget), and scores that row
-too. It imports both packages and runs on the CPU, the port on one thread
-(its CPU arithmetic can round otherwise on more): about 10 minutes for the
-6 s scene with both controls.
+too. `--replay-float64` traces `evo_tpu` alone and replays the named solves
+(sub-batch, index among its solved rows) through the port's solve in float32
+and in float64 (`replay_in_float64`). It imports both packages and runs on
+the CPU, the port on one thread (its CPU arithmetic can round otherwise on
+more): about 10 minutes for the 6 s scene with both controls.
 """
 
 from __future__ import annotations
@@ -561,6 +564,45 @@ def trip_decisions(jt: Trace, s: dict, i: int) -> dict:
     return out
 
 
+def replay_in_float64(jt: Trace, step: int, i: int) -> dict:
+    """Row i of sub-batch `step` of `evo_tpu` through the port's solve in
+    float32 and in float64 (every float input and the gradient store made
+    double), and in float64 from the centre moved one float32 ulp either
+    way: the flow angle (rad) of each beside `evo_tpu`'s, whether float64
+    lies between the two float32 answers (`straddled`), and how far the
+    nudged float64 solves move it (`f64_spread`). A float64 answer that the
+    float32 runs straddle, and that rounding-sized input changes do not
+    move, says the two float32 answers part by rounding alone."""
+    s = jt.steps[step]
+    grads, latest = jt.store(s["frame"] - 1)
+
+    def solve(dtype, nudge: float = 0.0):
+        pre = {k: torch.as_tensor(v[[i]]) for k, v in s["pre"].items()}
+        if nudge:
+            pre["center"] = torch.as_tensor(np.nextafter(
+                s["pre"]["center"][[i]], np.float32(nudge * np.inf)))
+        pre = {k: v.to(dtype) if v.is_floating_point() else v for k, v in pre.items()}
+        with CandidateNudge() as calls:
+            new, ran, cost, lost = align.solve_step_ref(ps.PatchTable(**pre), grads.to(dtype),
+                                                        latest.to(dtype))
+        return dict(flow=float(new.flow[0]), cost=float(cost[0]), trips=len(calls.costs) - 1)
+
+    f32, f64 = solve(torch.float32), solve(torch.float64)
+    nudged = [solve(torch.float64, n)["flow"] for n in (-1.0, 1.0)]
+    jax_flow = float(s["post"]["flow"][i])
+    lo, hi = sorted((jax_flow, f32["flow"]))
+    return dict(step=step, row=i, track=int(s["pre"]["track_id"][i]),
+                evo_tpu_flow=jax_flow, port_f32_flow=f32["flow"], f64_flow=f64["flow"],
+                f32_apart=_angle(jax_flow, f32["flow"]),
+                f64_to_evo_tpu=_angle(f64["flow"], jax_flow),
+                f64_to_port=_angle(f64["flow"], f32["flow"]),
+                straddled=lo <= f64["flow"] <= hi,
+                f64_spread=max(_angle(f, f64["flow"]) for f in nudged),
+                costs=dict(evo_tpu=float(s["cost"][i]), port_f32=f32["cost"],
+                           f64=f64["cost"]),
+                trips=dict(port_f32=f32["trips"], f64=f64["trips"]))
+
+
 def replay_through_port(jt: Trace, at) -> dict:
     """One sub-batch of `evo_tpu` through the port's solve: the largest
     gaps over its rows."""
@@ -661,10 +703,23 @@ def main(argv=None) -> int:
     ap.add_argument("--duration", type=float, default=None,
                     help="seconds of the scene (default: its row's, 6 or 12)")
     ap.add_argument("--control", nargs="*", default=[], choices=("centre", "budget"))
+    ap.add_argument("--replay-float64", nargs="*", default=[], metavar="STEP:ROW",
+                    help="trace `evo_tpu` alone and replay these solves in float32 and "
+                    "float64 (`replay_in_float64`)")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as work:
         ds_dir = write_scene(work, args.duration, args.scene)
+        if args.replay_float64:
+            jt = Trace()
+            run_jax(ds_dir, os.path.join(work, "jax"), jt)
+            report = dict(scene=args.scene, duration_s=args.duration, steps=len(jt.steps),
+                          replays=[replay_in_float64(jt, *map(int, at.split(":")))
+                                   for at in args.replay_float64])
+            print(json.dumps(report, indent=1, default=str))
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+            return 0
         jt, jtraj, pt, ptraj = trace_both(ds_dir, work)
         report = dict(scene=args.scene, duration_s=args.duration,
                       steps=[len(jt.steps), len(pt.steps)],
