@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero):
    ba_solve.cu, frame_maps.cu, corner_select.cu, frame_rows.cu,
    frame_policy.cu, route_events.cu), one nvcc
    for each source (and one for each clock build: the alignment kernel's,
-   compensation's two, VO's two, corner_select's and frame_rows'), all
-   started together,
+   compensation's two, VO's two, corner_select's, frame_rows', the
+   policy's and the routing's), all started together,
    and prints ptxas's register, spill and shared-memory lines;
 3. kernels: the alignment step (`kernels/align_step.py`, one block per
    table row: integration, the whole LM, the post-solve update and the
@@ -94,14 +94,18 @@ Phases (any failure raises and exits non-zero):
    clock splits of `corner_select` (cycles of one launch by stage) and of
    `frame_rows` (the slowest row of the heaviest call), each clock build
    held to its plain build's outputs; the policy's kernel
-   (`kernels.frame_policy`, one block a frame) on every policy call of the
-   default drive's 24 frames and the event routing's (`kernels.route_events`,
-   a block a patch) on every sub-batch of the tracker experiment
-   (`run/time_route.py`), each bit for bit against its plain version on the
-   card (decisions, state and `new_center`; rings, `ev_count`, `counter`),
-   timed on each call and in full on the heaviest, beside its bound and
-   plain version (no PyTorch call computes either: library none), with
-   ptxas's lines; the ATen operations the policy dispatches a frame through
+   (`kernels.frame_policy`, one block a frame, the association in conflict
+   waves) on every policy call of the default drive's 24 frames and the
+   event routing's (`kernels.route_events`, a block a patch in clusters of
+   8 that read the sub-batch once) on every sub-batch of the tracker
+   experiment (`run/time_route.py`), each bit for bit against its plain
+   version on the card (decisions, state and `new_center`; rings,
+   `ev_count`, `counter`), timed on each call and in full on the heaviest,
+   beside its bound and plain version (no PyTorch call computes either:
+   library none), with ptxas's lines, and each clock build
+   (-DEVO_FP_CLOCKS, -DEVO_RE_CLOCKS) held to its plain build's bits and
+   split by stage (the policy on each call, the routing's slowest block on
+   the heaviest call); the ATen operations the policy dispatches a frame through
    the plain version (the parent's path) and through the kernel, and the
    CUDA kernels, copies and operations of one frame window of the default
    drive (`time_frames.window_launches`); then the card tests of the frame
@@ -861,6 +865,9 @@ def phase_frame_kernels(timer, dev, label: str, dataset) -> list[dict]:
     print(f"frame_policy on each of the default drive's {fp['compared']} calls, device us a "
           f"launch: " + ", ".join(f"{u:.2f}" for u in fp["calls_us"])
           + f"; together {fp['calls_sum_us']:.2f} us ({label})", flush=True)
+    print(f"frame_policy clock split of the heaviest call (call {fp['heaviest_call']}), "
+          f"cycles of the block and its waves: {fp['clock']}; each call's total: "
+          f"{fp['calls_clock']}; each call's waves: {fp['calls_waves']} ({label})", flush=True)
     print(f"frame_policy dispatches a frame: plain version (the parent's path) "
           f"{fp['dispatches']['plain']} ATen operations, the kernel's path "
           f"{fp['dispatches']['kernel']} ({label})", flush=True)
@@ -886,6 +893,13 @@ def phase_route_kernel(timer, dev, label: str, dataset) -> dict:
     print(f"route_events on each of the {len(us)} sub-batches: device us a launch min "
           f"{min(us):.2f}, median {float(np.median(us)):.2f}, max {max(us):.2f}; together "
           f"{r['calls_sum_us']:.2f} us ({label})", flush=True)
+    print(f"route_events clock split of the heaviest call (call {r['heaviest_call']}), the "
+          f"slowest block's cycles: {r['clock']} ({label})", flush=True)
+    r["ptxas"] = {name: time_frames.ptxas(name) for name in (
+        "evo_route_events", "evo_route_events_clock") if time_frames.ptxas(name)}
+    for name, entries in r["ptxas"].items():
+        for entry, rep in entries.items():
+            print(f"  route_events registers ({name}, {entry}): {rep}", flush=True)
     window = time_frames.window_launches(dataset)
     print(f"default drive, one frame window (window {window['window']}, {window['sub_batches']} "
           f"sub-batches): {window['kernels']} CUDA kernels, {window['copies']} copies, "
@@ -2111,7 +2125,8 @@ def main() -> int:
             partial(localize._lib, clocks=True), ba_solve._lib, partial(ba_solve._lib, clocks=True),
             frame_maps._lib, corner_select._lib, partial(corner_select._lib, clocks=True),
             frame_rows._lib, partial(frame_rows._lib, clocks=True), frame_policy._lib,
-            route_events._lib)
+            partial(frame_policy._lib, clocks=True), route_events._lib,
+            partial(route_events._lib, clocks=True))
     with ThreadPoolExecutor(len(libs)) as pool:
         for build in [pool.submit(lib) for lib in libs]:
             build.result()
@@ -2122,7 +2137,8 @@ def main() -> int:
                  "evo_comp_tile_clock", "evo_comp_step", "evo_comp_step_clock", "evo_localize",
                  "evo_localize_clock", "evo_ba_solve", "evo_ba_solve_clock", "evo_frame_maps",
                  "evo_corner_select", "evo_corner_select_clock", "evo_frame_rows",
-                 "evo_frame_rows_clock", "evo_frame_policy", "evo_route_events"):
+                 "evo_frame_rows_clock", "evo_frame_policy", "evo_frame_policy_clock",
+                 "evo_route_events", "evo_route_events_clock"):
         for line in nvcc.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas ({name}):", line.strip(), flush=True)
@@ -2300,7 +2316,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], shape=row["shape"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], host_us=row["host_us"], calls_us=row["calls_us"],
-            calls_sum_us=row["calls_sum_us"], digest=row["digest"],
+            calls_sum_us=row["calls_sum_us"], digest=row["digest"], clock=row["clock"],
             **({"dispatches_a_frame": row["dispatches"]} if name == "frame_policy"
                else {"window": row["window"]})))
     print(label, flush=True)

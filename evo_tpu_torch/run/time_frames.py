@@ -64,6 +64,8 @@ import torch
 
 SCENE = dict(duration_s=1.2, fps=20.0, seed=3, scene="3walls", contrast_threshold=0.05)
 REPS = 200
+# the policy's host µs a launch: the least of this many rounds of REPS
+HOST_ROUNDS = 5
 
 # (module under evo_tpu_torch, attribute, part name); a dotted attribute is a
 # method of a class. Nested parts are timed inclusive of what they call.
@@ -668,13 +670,40 @@ def policy_work(view, corners_ok, n_slots: int) -> tuple:
     return n_bytes, 5.0 * int(view.alive.sum()) * int(corners_ok.sum())
 
 
+def clock_frame_policy(timer, call: dict) -> dict:
+    """The clock build's split of one recorded policy call
+    (`kernels.frame_policy.STAGES`, one block) and its wave count
+    (`wave_count`): one launch after REPS of them, held to the plain
+    build's bits."""
+    from evo_tpu_torch.kernels import frame_policy as kfp
+
+    view, state, xy, ok = call["args"]
+    args = (view, state.slot_birth, state.next_tid, state.frame_no, xy, ok)
+    clk = torch.zeros(len(kfp.CLOCK_SLOTS), dtype=torch.int64, device=view.center.device)
+    timer.device_ms(lambda: kfp.frame_policy(*args, **call["kw"], clocks=clk), REPS)
+    got = kfp.frame_policy(*args, **call["kw"], clocks=clk)
+    ref = kfp.frame_policy(*args, **call["kw"])
+    for name, a, b in zip(kfp.DECISIONS + kfp.STATE,
+                          [got[0][n] for n in kfp.DECISIONS] + list(got[1]),
+                          [ref[0][n] for n in kfp.DECISIONS] + list(ref[1])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"frame_policy's clock build gives another {name}")
+    c = clk.cpu().tolist()
+    cycles = c[:len(kfp.STAGES)]
+    if sum(cycles[:-1]) != cycles[-1] or min(c) < 0 or cycles[-1] <= 0:
+        raise AssertionError(f"frame_policy's clock build's stages are off: {c}")
+    return dict(zip(kfp.CLOCK_SLOTS, c))
+
+
 def check_frame_policy(timer, dev, calls: list) -> dict:
     """`frame_policy` (the kernel) against `frame_policy_ref` on the card on
     every recorded call, bit for bit (every decision and the new state),
     each call timed (`calls_us`) and its outputs hashed in order (`digest`);
-    the call with the most live rows timed in full; the ATen operations
-    each version dispatches a call (`dispatches`: the plain version's, the
-    parent's path, against the kernel's)."""
+    the call with the most live rows timed in full and, where the tree has
+    the clock build, split (`clock`; on every call too, each call's total
+    cycles `calls_clock` and the waves it ran `calls_waves`); the
+    ATen operations each version dispatches a call (`dispatches`: the plain
+    version's, the parent's path, against the kernel's)."""
     from evo_tpu_torch.kernels import frame_policy as kfp
     from evo_tpu_torch.run.time_comp import bound
     from evo_tpu_torch.run.time_splat import Timer
@@ -697,17 +726,23 @@ def check_frame_policy(timer, dev, calls: list) -> dict:
     best = max(range(len(calls)), key=lambda k: (int(calls[k]["args"][0].alive.sum()), k))
     call = calls[best]
     view, state, xy, ok = call["args"]
+    per_call = [clock_frame_policy(timer, c) for c in calls] if hasattr(kfp, "STAGES") \
+        else None
     b_ms, by = bound(*policy_work(view, ok, state.slot_birth.shape[0]))
     return dict(kernel="frame_policy",
                 shape=f"{view.alive.shape[0]} rows ({int(view.alive.sum())} live), "
                 f"{xy.shape[0]} corners ({int(ok.sum())} valid), "
                 f"{state.slot_birth.shape[0]} slots", compared=len(calls), max_abs_err=0.0,
                 digest=digest.hexdigest(), calls_us=calls_us, calls_sum_us=sum(calls_us),
+                heaviest_call=best, clock=per_call and per_call[best],
+                calls_clock=per_call and [k["total"] for k in per_call],
+                calls_waves=per_call and [k["wave_count"] for k in per_call],
                 dispatches=dict(plain=count_dispatches(
                     lambda: policy.frame_policy_ref(*call["args"], **call["kw"])),
                     kernel=count_dispatches(lambda: run_kernel(call))),
                 ms=timer.device_ms(lambda: run_kernel(call), REPS),
-                host_us=Timer.host_us(lambda: run_kernel(call), REPS),
+                host_us=min(Timer.host_us(lambda: run_kernel(call), REPS)
+                            for _ in range(HOST_ROUNDS)),
                 plain_ms=timer.device_ms(
                     lambda: policy.frame_policy_ref(*call["args"], **call["kw"]), 20),
                 bound_ms=b_ms, bound_by=by, library_ms=None)
@@ -784,7 +819,8 @@ def main(argv=None) -> int:
     if args.kernels:
         from evo_tpu_torch.kernels import nvcc
 
-        for row in check_kernels(Timer(dev), dev, dataset):
+        rows = check_kernels(Timer(dev), dev, dataset)
+        for row in rows:
             print(f"time_frames {args.root}: kernel " + json.dumps(dict(row, card=label),
                                                                   default=str), flush=True)
         for name, log in sorted(nvcc.build_logs.items()):

@@ -12,10 +12,22 @@ default and records the arguments of every `patch_state.route_events` call
 each recorded call, bit for bit (rings, `ev_count`, `counter`), hashes the
 outputs in order (`digest`), times each call (device µs a launch over 200
 launches between one pair of CUDA events behind a busy queue,
-`time_splat.Timer`) and the heaviest call in full: host µs a launch, the
+`time_splat.Timer`) and the heaviest call in full: host µs a launch (the
+least of `HOST_ROUNDS` rounds of 200), the
 bound (`time_comp.bound`: the bytes the call must move over 3.35 TB/s
 against its operations over 67 TFLOP/s) and the plain version's time. No
-PyTorch call computes the routing, so there is no library time.
+PyTorch call computes the routing, so there is no library time. Where the
+tree has the clock build (`kernels.route_events.STAGES`, -DEVO_RE_CLOCKS),
+`clock_route_events` splits the heaviest call by stage: the slowest
+block's cycles, held to the plain build's bits; ptxas's registers of both
+builds are printed beside. Any checkout since the routing kernel can be
+timed, so the parent and this tree run in turns in one call:
+
+    python evo_tpu_torch/run/time_route.py --root PARENT
+    python evo_tpu_torch/run/time_route.py
+
+(PARENT: the other commit unpacked into a directory `.gitignore` lists.)
+
 `chip_smoke.py` phase 3 runs the same functions.
 """
 
@@ -32,6 +44,9 @@ import torch
 
 SCENE = dict(duration_s=1.2, fps=20.0, seed=3, scene="3walls", contrast_threshold=0.05)
 REPS = 200
+# host µs a launch: the least of this many rounds of REPS launches (the
+# host's time spreads with the load of the cores it shares)
+HOST_ROUNDS = 5
 # the table's fields the routing reads
 FIELDS = ("center", "alive", "ev_count", "counter", "ev_t", "ev_x", "ev_y", "ev_p")
 
@@ -73,6 +88,32 @@ def route_work(table, ex, mask) -> tuple:
     return n_bytes, 6.0 * int(table.alive.sum()) * int(mask.sum())
 
 
+def clock_route_events(timer, call) -> dict:
+    """The clock build's split of one recorded call (`kernels.route_events.
+    STAGES`): one launch after REPS of them (a cold first launch reads
+    slower), held to the plain build's bits. The launch lasts as long as its
+    slowest block, so the split is that block's (by its total), beside each
+    stage's largest value over the blocks."""
+    from evo_tpu_torch.kernels import route_events as kre
+
+    table = call[0]
+    clk = torch.zeros((table.capacity, len(kre.STAGES)), dtype=torch.int64,
+                      device=table.center.device)
+    timer.device_ms(lambda: kre.route_events(*call, clocks=clk), REPS)
+    got = kre.route_events(*call, clocks=clk)
+    ref = kre.route_events(*call)
+    for name in kre.RING + ("ev_count", "counter"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"route_events' clock build gives another {name}")
+    c = clk.cpu()
+    ran = c[:, -1] > 0
+    if not torch.equal(c[:, :-1].sum(1), c[:, -1]) or (c < 0).any() or not ran.any():
+        raise AssertionError(f"route_events' clock build's stages are off: {c[:4].tolist()}")
+    slow = int(c[:, -1].argmax())
+    return dict(block=slow, cycles=dict(zip(kre.STAGES, c[slow].tolist())),
+                largest=dict(zip(kre.STAGES, c.amax(0).tolist())), blocks=int(ran.sum()))
+
+
 def check_route_events(timer, calls: list) -> dict:
     """`route_events` (the kernel) against `route_events_ref` on every
     recorded call, bit for bit, each call timed (`calls_us`, in the run's
@@ -99,13 +140,16 @@ def check_route_events(timer, calls: list) -> dict:
     call = calls[best]
     table, ex, mask = call[0], call[1], call[5]
     b_ms, by = bound(*route_work(table, ex, mask))
+    clock = clock_route_events(timer, call) if hasattr(kre, "STAGES") else None
     return dict(kernel="route_events",
                 shape=f"{table.capacity} rows ({int(table.alive.sum())} live), E "
                 f"{table.ev_t.shape[1]}, {ex.shape[0]} events ({int(mask.sum())} valid), "
                 f"{hits[best]} routed", compared=len(calls), max_abs_err=0.0,
                 digest=digest.hexdigest(), calls_us=calls_us, calls_sum_us=sum(calls_us),
-                routed=sum(hits), ms=timer.device_ms(lambda: ps.route_events(*call), REPS),
-                host_us=Timer.host_us(lambda: ps.route_events(*call), REPS),
+                heaviest_call=best, routed=sum(hits), clock=clock,
+                ms=timer.device_ms(lambda: ps.route_events(*call), REPS),
+                host_us=min(Timer.host_us(lambda: ps.route_events(*call), REPS)
+                            for _ in range(HOST_ROUNDS)),
                 plain_ms=timer.device_ms(lambda: ps.route_events_ref(*call), 20),
                 bound_ms=b_ms, bound_by=by, library_ms=None)
 
@@ -126,8 +170,23 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     dataset = sim.to_dataset(sim.EventCameraSimulator(sim.SimParams(**SCENE),
                                                       device=dev).generate())
-    row = check_route_events(Timer(dev), record_routes(dataset))
-    print(f"time_route {args.root}: kernel " + json.dumps(dict(row, card=card())), flush=True)
+    from evo_tpu_torch.kernels import nvcc
+    from evo_tpu_torch.run.time_frames import ptxas
+
+    calls = record_routes(dataset)
+    row = check_route_events(Timer(dev), calls)
+    row["ptxas"] = {name: ptxas(name) for name in ("evo_route_events", "evo_route_events_clock")
+                    if ptxas(name)}
+    label = card()
+    print(f"time_route {args.root}: kernel " + json.dumps(dict(row, card=label)), flush=True)
+    if row["clock"]:
+        print(f"time_route {args.root}: clock split of the heaviest call (call "
+              f"{row['heaviest_call']}), the slowest block's cycles " + json.dumps(row["clock"])
+              + f" ({label})", flush=True)
+    for name in ("evo_route_events", "evo_route_events_clock"):
+        for line in nvcc.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"time_route {args.root}: ptxas ({name}): {line.strip()}", flush=True)
     return 0
 
 

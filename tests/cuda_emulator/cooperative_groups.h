@@ -1,10 +1,10 @@
 // A stand-in for <cooperative_groups.h> for the CPU emulation of the
 // package's kernels (see cuda_runtime.h beside it): the thread-block
-// cluster of the calling thread. Its blocks run side by side as threads, so
-// `sync()` is a barrier over every thread of the cluster, and
-// `map_shared_rank` maps a pointer into the calling block's dynamic shared
-// memory to the same offset in another block's (the emulated kernels keep
-// whatever they share across the cluster there).
+// cluster of the calling thread. Its blocks run side by side, their threads
+// fibers taking turns, so `sync()` is a barrier over every thread of the
+// cluster, and `map_shared_rank` maps a pointer into the calling block's
+// dynamic shared memory to the same offset in another block's (the emulated
+// kernels keep whatever they share across the cluster there).
 
 #pragma once
 

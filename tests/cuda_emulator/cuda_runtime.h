@@ -9,18 +9,28 @@
 // `route_events.cu` use, and no more.
 //
 // A launch runs the grid's clusters one after another (a `<<<...>>>` launch:
-// clusters of one block); the blocks of a cluster run side by side, each as
-// one std::thread for each thread of the block. `__shared__` variables are
+// clusters of one block); the blocks of a cluster run side by side, each
+// thread of each block as a fiber (a context with a stack of its own) on
+// the launching thread. The fibers take turns in thread order, each running
+// until it waits at a barrier or ends, so a launch takes one core and its
+// barriers cost a context switch a thread, where a thread of the system
+// each would wait on the scheduler; a launch whose threads all wait at
+// barriers the others never reach aborts. `__shared__` variables are
 // function statics, so the threads of every running block share them: a
 // kernel launched in clusters of more than one block keeps its shared state
-// in its dynamic shared memory. `__syncthreads` is a std::barrier over the
+// in its dynamic shared memory. `__syncthreads` is a barrier over the
 // block, `cluster.sync()` (`cooperative_groups.h` beside this file) one over
 // the cluster; the warp shuffles and ballots exchange values through an
-// array between two barriers of the warp, and `__syncwarp` is one such
-// barrier; `atomicAdd` takes a mutex. A launch's dynamic shared memory is a
-// buffer of the block, which `evo_emu::dynamic_smem()` returns (the tests
-// rewrite `extern __shared__ __align__(16) float name[];` into a call of it),
-// and `map_shared_rank` maps a pointer into it to the same place in another
+// array and one barrier of the warp (two halves, which the warp's exchanges
+// take in turn, so a lane writes one while the others may still read the
+// other), and `__syncwarp` is one such barrier; `atomicAdd` and `atomicMin`
+// take a mutex. A launch's dynamic shared memory is a buffer of the block,
+// which `evo_emu::dynamic_smem()` returns (the tests rewrite `extern
+// __shared__ __align__(16) float name[];` into a call of it), filled with
+// quiet NaNs as the card leaves it undefined: a float read before it is
+// written is NaN, and an index so read (2,143,289,344) points gigabytes
+// past the buffer, so a read of what was never written shows here too;
+// `map_shared_rank` maps a pointer into it to the same place in another
 // block of the cluster.
 // Compile with `g++ -std=c++20 -ffp-contract=off` so that each product and
 // sum rounds on its own, as the kernels' `-fmad=false` build does; an
@@ -34,16 +44,21 @@
 
 #pragma once
 
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <atomic>
-#include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <math.h>
+#include <limits>
 #include <memory>
 #include <mutex>
-#include <thread>
+#include <type_traits>
 #include <vector>
 
 #define __global__
@@ -93,25 +108,69 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs = 0;
 };
 
-// the calling thread's built-in indices (variables, not macros, so that a
+// the running fiber's built-in indices (variables, not macros, so that a
 // member of the same name, as `cudaLaunchConfig_t::gridDim`, stays free)
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 namespace evo_emu {
 
+struct Block;
+
+// a thread of the launch
+struct Fiber {
+  ucontext_t context;
+  Block* block = nullptr;
+  dim3 thread, index;  // its threadIdx and blockIdx
+  // its count of its warp's exchanges and of its block's `__syncthreads_or`
+  // calls (every lane, and every thread, makes the same calls in the same
+  // order)
+  unsigned exchanges = 0, or_calls = 0;
+  bool done = false;
+};
+
+inline thread_local Fiber* self = nullptr;       // the running fiber
+inline thread_local ucontext_t* home = nullptr;  // the launch's own context
+// arrivals at barriers and ends of fibers: a turn of every waiting fiber
+// that adds none is a deadlock
+inline thread_local unsigned long long steps = 0;
+
+// the running fiber's turn ends; the launch's next fiber takes its turn
+inline void yield() { swapcontext(&self->context, home); }
+
+// A barrier of `count` threads: the last to arrive releases the others and
+// goes on; the others yield their turns until it has.
+struct Barrier {
+  explicit Barrier(std::ptrdiff_t count) : count(count) {}
+  void arrive_and_wait() {
+    ++steps;
+    const unsigned long long gen = generation;
+    if (++arrived == count) {
+      arrived = 0;
+      ++generation;
+      return;
+    }
+    while (generation == gen) yield();
+  }
+  std::ptrdiff_t count, arrived = 0;
+  unsigned long long generation = 0;
+};
+
 struct Cluster;
 
 struct Block {
   explicit Block(int threads)
-      : sync(threads), exchange(threads) {
+      : sync(threads), exchange(2 * (size_t)threads) {
     for (int w = 0; w < (threads + 31) / 32; ++w)
-      warps.emplace_back(new std::barrier<>(threads - 32 * w < 32 ? threads - 32 * w : 32));
+      warps.emplace_back(new Barrier(threads - 32 * w < 32 ? threads - 32 * w : 32));
   }
-  std::barrier<> sync;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
-  std::vector<unsigned long long> exchange;  // one 8-byte slot a thread
+  Barrier sync;
+  std::vector<std::unique_ptr<Barrier>> warps;
+  // one 8-byte slot a thread in each half: the warp's exchanges alternate
+  // between them
+  std::vector<unsigned long long> exchange;
   std::mutex atomic;
-  std::atomic<int> any{0};  // `__syncthreads_or`'s predicate
+  // `__syncthreads_or`'s predicates: its calls take the three in turn
+  std::atomic<int> any[3] = {0, 0, 0};
   std::vector<float> dynamic;  // the launch's dynamic shared memory
   Cluster* cluster = nullptr;
   unsigned rank = 0;  // in its cluster
@@ -120,24 +179,32 @@ struct Block {
 // the blocks of a cluster, which run side by side, and their barrier
 struct Cluster {
   Cluster(unsigned blocks, int threads) : sync((std::ptrdiff_t)blocks * threads) {}
-  std::barrier<> sync;
+  Barrier sync;
   std::vector<Block*> blocks;
 };
 
-inline thread_local Block* block = nullptr;  // the block of the calling thread
+inline thread_local Block* block = nullptr;  // the block of the running fiber
+
+// The half of the exchange array for the warp's next exchange. A lane
+// writes a half only after the barrier of the exchange between, which every
+// lane reaches after its reads of the half's last exchange, so one barrier
+// an exchange is enough.
+inline unsigned long long* exchange_half() {
+  return block->exchange.data() + (self->exchanges++ & 1) * (block->exchange.size() / 2);
+}
 
 template <class T>
 T shuffle(T v, int src_lane) {
   static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
   const int t = (int)::threadIdx.x, w = t >> 5;
+  unsigned long long* half = exchange_half();
   unsigned long long slot = 0;
   std::memcpy(&slot, &v, sizeof(T));
-  block->exchange[t] = slot;
+  half[t] = slot;
   block->warps[w]->arrive_and_wait();
   T out;
-  slot = block->exchange[(w << 5) | (src_lane & 31)];
+  slot = half[(w << 5) | (src_lane & 31)];
   std::memcpy(&out, &slot, sizeof(T));
-  block->warps[w]->arrive_and_wait();
   return out;
 }
 
@@ -145,45 +212,105 @@ T shuffle(T v, int src_lane) {
 // warp takes part).
 inline unsigned ballot(bool pred) {
   const int t = (int)::threadIdx.x, w = t >> 5;
-  block->exchange[t] = pred ? 1 : 0;
+  unsigned long long* half = exchange_half();
+  half[t] = pred ? 1 : 0;
   block->warps[w]->arrive_and_wait();
   unsigned m = 0;
-  const int lanes = (int)block->exchange.size() - (w << 5);
+  const int lanes = (int)block->exchange.size() / 2 - (w << 5);
   for (int l = 0; l < 32 && l < lanes; ++l)
-    if (block->exchange[(w << 5) | l]) m |= 1u << l;
-  block->warps[w]->arrive_and_wait();
+    if (half[(w << 5) | l]) m |= 1u << l;
   return m;
+}
+
+// The fibers' stacks, one mapping (committed only where a stack is used),
+// each with a page at its low end that faults on an overflow
+struct Stacks {
+  static constexpr size_t kBytes = size_t(1) << 20, kGuard = 4096;
+  explicit Stacks(size_t n) : n(n) {
+    void* at = mmap(nullptr, n * kBytes, PROT_READ | PROT_WRITE,
+                    MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (at == MAP_FAILED) {
+      std::perror("emulated launch: mmap of the threads' stacks");
+      std::abort();
+    }
+    base = static_cast<char*>(at);
+    for (size_t i = 0; i < n; ++i) mprotect(base + i * kBytes, kGuard, PROT_NONE);
+  }
+  ~Stacks() { munmap(base, n * kBytes); }
+  char* at(size_t i) const { return base + i * kBytes; }
+  size_t n;
+  char* base;
+};
+
+// what each fiber of the launch runs: the kernel's body
+inline thread_local void (*entry)(void*) = nullptr;
+inline thread_local void* entry_arg = nullptr;
+
+inline void fiber_main() {
+  entry(entry_arg);
+  self->done = true;
+  ++steps;
+  swapcontext(&self->context, home);  // never resumed
 }
 
 // The grid's clusters of `cluster` blocks in turn, the blocks of each side by
 // side; a grid of more than one row (grid.y) runs its rows in turn.
 template <class F>
 void launch_clusters(dim3 grid, dim3 threads, size_t smem, unsigned cluster, F&& body) {
+  using Body = std::remove_reference_t<F>;
+  const size_t n = (size_t)cluster * threads.x;
+  const Stacks stacks(n);
+  entry = [](void* f) { (*static_cast<Body*>(f))(); };
+  entry_arg = const_cast<void*>(static_cast<const void*>(std::addressof(body)));
+  ucontext_t launcher;
+  home = &launcher;
+  ::blockDim = threads;
+  ::gridDim = grid;
   for (unsigned row = 0; row < grid.y; ++row)
   for (unsigned first = 0; first < grid.x; first += cluster) {
     Cluster cl(cluster, (int)threads.x);
     std::vector<std::unique_ptr<Block>> blocks;
     for (unsigned r = 0; r < cluster; ++r) {
       blocks.emplace_back(new Block((int)threads.x));
-      blocks.back()->dynamic.assign((smem + sizeof(float) - 1) / sizeof(float), 0.0f);
+      blocks.back()->dynamic.assign((smem + sizeof(float) - 1) / sizeof(float),
+                                      std::numeric_limits<float>::quiet_NaN());
       blocks.back()->cluster = &cl;
       blocks.back()->rank = r;
       cl.blocks.push_back(blocks.back().get());
     }
-    std::vector<std::thread> pool;
-    pool.reserve((size_t)cluster * threads.x);
-    for (unsigned r = 0; r < cluster; ++r)
-      for (unsigned t = 0; t < threads.x; ++t)
-        pool.emplace_back([&, t, r] {
-          block = cl.blocks[r];
-          ::threadIdx = dim3(t);
-          ::blockIdx = dim3(first + r, row);
-          ::blockDim = threads;
-          ::gridDim = grid;
-          body();
-        });
-    for (auto& th : pool) th.join();
+    std::vector<Fiber> fibers(n);
+    for (size_t i = 0; i < n; ++i) {
+      Fiber& f = fibers[i];
+      f.block = cl.blocks[i / threads.x];
+      f.thread = dim3((unsigned)(i % threads.x));
+      f.index = dim3(first + (unsigned)(i / threads.x), row);
+      getcontext(&f.context);
+      f.context.uc_stack.ss_sp = stacks.at(i) + Stacks::kGuard;
+      f.context.uc_stack.ss_size = Stacks::kBytes - Stacks::kGuard;
+      f.context.uc_link = nullptr;
+      makecontext(&f.context, fiber_main, 0);
+    }
+    for (size_t left = n; left;) {
+      const unsigned long long before = steps;
+      for (Fiber& f : fibers) {
+        if (f.done) continue;
+        self = &f;
+        block = f.block;
+        ::threadIdx = f.thread;
+        ::blockIdx = f.index;
+        swapcontext(&launcher, &f.context);
+        if (f.done) --left;
+      }
+      if (left && steps == before) {
+        std::fprintf(stderr, "emulated launch: its threads wait at barriers that the others "
+                             "never reach\n");
+        std::abort();
+      }
+    }
   }
+  self = nullptr;
+  block = nullptr;
+  home = nullptr;
 }
 
 template <class F>
@@ -209,15 +336,18 @@ inline float* dynamic_smem() { return block->dynamic.data(); }
 }  // namespace evo_emu
 
 inline void __syncthreads() { evo_emu::block->sync.arrive_and_wait(); }
-// a barrier of the block that returns whether any thread's predicate held
+// a barrier of the block that returns whether any thread's predicate held.
+// Call k sets predicate k mod 3 and reads it after its barrier; thread 0
+// clears predicate (k + 2) mod 3 then: call k - 1 read it before the
+// barrier, and call k + 2 sets it only after call k + 1's, which thread 0
+// reaches after the clear. So one barrier a call.
 inline int __syncthreads_or(int pred) {
   evo_emu::Block* b = evo_emu::block;
-  if (pred) b->any.store(1);
+  const unsigned k = evo_emu::self->or_calls++ % 3;
+  if (pred) b->any[k].store(1);
   b->sync.arrive_and_wait();
-  const int any = b->any.load();
-  b->sync.arrive_and_wait();
-  if (threadIdx.x == 0) b->any.store(0);
-  b->sync.arrive_and_wait();
+  const int any = b->any[k].load();
+  if (threadIdx.x == 0) b->any[(k + 2) % 3].store(0);
   return any;
 }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -241,6 +371,13 @@ inline T atomicAdd(T* at, T v) {
   std::lock_guard<std::mutex> hold(evo_emu::block->atomic);
   const T old = *at;
   *at = old + v;
+  return old;
+}
+template <class T>
+inline T atomicMin(T* at, T v) {
+  std::lock_guard<std::mutex> hold(evo_emu::block->atomic);
+  const T old = *at;
+  *at = v < old ? v : old;
   return old;
 }
 
@@ -283,7 +420,7 @@ inline cudaError_t cudaGetDevice(int* dev) {
 }
 template <class Kernel>
 cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
-// every cluster can be placed: its blocks run as threads
+// every cluster can be placed: its blocks run as fibers
 template <class Kernel>
 cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, Kernel, const cudaLaunchConfig_t*) {
   *clusters = 1;

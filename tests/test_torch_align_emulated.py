@@ -1,8 +1,9 @@
 """The alignment kernel's source, `evo_tpu_torch/csrc/align_step.cu`, run on
 the CPU: compiled by g++ against the stand-in CUDA headers under
-`tests/cuda_emulator/` (a std::thread for each CUDA thread, a std::barrier
-for `__syncthreads`, barriers of the warp around the shuffles, a mutex for
-`atomicAdd`, the grid's blocks one after another), called through the
+`tests/cuda_emulator/` (a fiber for each CUDA thread, the fibers taking
+turns between barriers, a barrier for `__syncthreads`, one of the warp in
+each shuffle, a mutex for `atomicAdd`, the grid's blocks one after
+another), called through the
 wrapper's own pointer array and output arena (`kernels.align_step._run`),
 and held to the plain version `tracker.align.solve_step_ref` on the same
 CPU tensors; and its clock build (-DEVO_ALIGN_CLOCKS) held to the plain

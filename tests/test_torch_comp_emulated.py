@@ -1,9 +1,10 @@
 """The compensation kernels' sources, `evo_tpu_torch/csrc/comp_tile.cu`
 (kernel A: the tile residual and its Jacobian) and `comp_step.cu` (kernel
 B: the window's LM step), run on the CPU: compiled by g++ against the
-stand-in CUDA headers under `tests/cuda_emulator/` (a std::thread for each
-CUDA thread, std::barriers for `__syncthreads` and `__syncwarp`, the
-launch's dynamic shared memory a buffer of the block), called through the
+stand-in CUDA headers under `tests/cuda_emulator/` (a fiber for each CUDA
+thread, the fibers of a cluster taking turns between barriers, barriers
+for `__syncthreads` and `__syncwarp`, the launch's dynamic shared memory a
+buffer of the block), called through the
 wrappers' own argument packing, and held to the plain versions in
 `tracker.compensate` on the same CPU tensors. The window is the one of
 `tests/test_torch_compensate.py` (a 60x80 sensor, 12 tiles of 20 px, at

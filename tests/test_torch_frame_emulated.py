@@ -151,7 +151,7 @@ def fp_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def re_lib(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("route_events"), "route_events", kre._SIGNATURES,
-                    "-DEVO_RE_THREADS=32", "-DEVO_RE_RUN=32")
+                    "-DEVO_RE_THREADS=32", "-DEVO_RE_CLUSTER=2")
 
 
 def maps_of(lib, img):

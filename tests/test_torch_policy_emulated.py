@@ -11,19 +11,31 @@ same numpy inputs, bit for bit: both kernels only compare, count and copy
 version's under `-ffp-contract=off`, as the card's `-fmad=false`).
 
 The policy: `tests/test_torch_pipeline.py`'s random tables; equal
-distances, where the lower corner index wins; a row whose nearest corner an
-earlier row claimed; dead rows and a live row with a NaN centre; invalid
-corners; exhausted slots, with eviction and ties of `slot_birth`; an
-association distance whose candidates overflow a row's list of 8, and one
-whose square lies above the masked distance 3.4e38 (every row then takes
-the argmin over all corners); 2,048 corners and a capacity of 200.
+distances, where the lower corner index wins, within a row and across rows;
+a row whose nearest corner an earlier row claimed; dead rows and a live row
+with a NaN centre; invalid corners; exhausted slots, with eviction and ties
+of `slot_birth`; an association distance whose candidates overflow a row's
+list of 8, and one whose square lies above the masked distance 3.4e38
+(every row then takes the argmin over all corners); 2,048 corners and a
+capacity of 200; a chain of 120 rows each sharing a corner with the next
+(the conflict waves reach 120), the same chain with an overflowing row in
+its middle, and groups of rows sharing six corners.
 Routing: more than 320 hits for one patch, a wrapped ring, padded events,
-events exactly 12 px from the centre, a dead patch, N = 4,096 k.
+events exactly 12 px from the centre, a dead patch, N = 4,096 k, one
+patch's hits straddling the 32-event words and the emulated build's
+2,048-event chunks, N = 5,001 (not a multiple of 32), N = 0 (which both
+plain versions refuse: the kernel must leave the table as it is), P = 1,
+every event in one patch's rect, dead patches between live ones, N =
+70,000 (above the card build's 65,536-event chunk, a patch's kept hits
+straddling it).
 
-The builds run a block as one warp (`-DEVO_FP_THREADS=32`,
-`-DEVO_RE_THREADS=32 -DEVO_RE_RUN=32`), which the emulation runs fastest
-(its threads wait on each other at every barrier); one case of each also
-runs with two warps, so the block scans and minima cross warps there.
+The builds run a block as one warp (`-DEVO_FP_THREADS=32`;
+`-DEVO_RE_THREADS=32 -DEVO_RE_CLUSTER=2 -DEVO_RE_CHUNK=2048`: clusters of
+two patches and sub-batches taken 2,048 events a pass, so longer ones take
+the counting pass), which the emulation runs fastest (each barrier is a
+turn of every thread it holds); one case of each also runs with two warps
+(the routing in clusters of four, in one pass and 2,048 events a pass), so
+the block scans and minima cross warps there.
 """
 
 import dataclasses
@@ -51,9 +63,9 @@ jax_policy = jax.jit(jpolicy.frame_policy, static_argnames=("association_distanc
 jax_route = jax.jit(jps.route_events)
 
 FP_BUILD = ("-DEVO_FP_THREADS=32",)
-RE_BUILD = ("-DEVO_RE_THREADS=32", "-DEVO_RE_RUN=32")
+RE_BUILD = ("-DEVO_RE_THREADS=32", "-DEVO_RE_CLUSTER=2", "-DEVO_RE_CHUNK=2048")
 TWO_WARPS = {"frame_policy": ("-DEVO_FP_THREADS=64",),
-             "route_events": ("-DEVO_RE_THREADS=64", "-DEVO_RE_RUN=16")}
+             "route_events": ("-DEVO_RE_THREADS=64", "-DEVO_RE_CLUSTER=4")}
 
 
 @pytest.fixture(scope="module")
@@ -140,6 +152,10 @@ def test_frame_policy_kernel_matches_plain_and_jax(fp_lib, name):
         assert int(dec["slot"]) == 5 and dec["evict"].sum() == 1 and dec["evict"][5]
     if name in ("list_overflow", "threshold_above_mask"):
         assert dec["n_new"] < case["ok"].sum()  # rows claimed corners
+    if name == "chain":  # row k claimed corner k, down the whole chain
+        assert dec["n_new"] == 0
+    if name == "overflow_in_chain":  # corner 99 and nine of the crowd left over
+        assert dec["n_new"] == 10 and (dec["new_center"] == [8.0 * 99 + 24.5, 50.0]).all(-1).any()
 
 
 def test_frame_policy_kernel_with_two_warps(tmp_path):
@@ -150,6 +166,35 @@ def test_frame_policy_kernel_with_two_warps(tmp_path):
         make, kw = POLICY_CASES[name]
         got, ref, _ = _policies(lib, make(), **kw)
         _assert_same_policy(got, ref, name)
+
+
+def test_frame_policy_clock_build_keeps_the_bits(tmp_path, fp_lib):
+    """The clock build (-DEVO_FP_CLOCKS): the plain build's decisions and
+    state, its stages (the emulation's nanoseconds for the card's cycles)
+    add up to its total, and its wave count is the longest chain of rows
+    that share corners: 120 on the chain, 4 on groups of four rows sharing
+    corners, and one a live row where every list overflows."""
+    clock = _compile(tmp_path, "frame_policy", kfp._SIGNATURES, *FP_BUILD, "-DEVO_FP_CLOCKS")
+    waves = dict(chain=120, shared_corners=4, threshold_above_mask=20)
+    for name in ("random2", "list_overflow", "chain", "shared_corners", "threshold_above_mask"):
+        make, kw = POLICY_CASES[name]
+        case, clk = make(), torch.zeros(len(kfp.CLOCK_SLOTS), dtype=torch.int64)
+        kw = dict(dict(max_patches=100, association_distance=5.0), **kw)
+        view = tpolicy.TableView(**{k: torch.from_numpy(np.asarray(v)) for k, v in
+                                    case["view"].items()})
+        state = policy_state(case["slot_birth"])
+        args = (view, state.slot_birth, state.next_tid, state.frame_no,
+                torch.from_numpy(case["corners"]), torch.from_numpy(case["ok"]))
+        got = kfp.run(clock.evo_frame_policy, ok, *args, **kw, clocks=clk)
+        ref = kfp.run(fp_lib.evo_frame_policy, ok, *args, **kw)
+        for k in kfp.DECISIONS:
+            assert torch.equal(got[0][k], ref[0][k]), (name, k)
+        for a, b in zip(got[1], ref[1]):
+            assert torch.equal(a, b), name
+        cycles = clk[:len(kfp.STAGES)]
+        assert int(cycles[:-1].sum()) == int(cycles[-1]) > 0 and (clk >= 0).all(), name
+        if name in waves:
+            assert not ref[0]["evict"].any() and int(clk[-1]) == waves[name], name
 
 
 # ---- routing ---------------------------------------------------------------------
@@ -167,11 +212,15 @@ def _check_route(lib, name, seed=0):
     table, jtable = _tables(fields)
     ev = [torch.from_numpy(a) for a in events]
     got = kre.run(lib.evo_route_events, ok, table, *ev)
-    ref = tps.route_events_ref(table, *ev)
-    jref = jax_route(jtable, *[jnp.asarray(a) for a in events])
+    if len(events[0]):
+        refs = ((tps.route_events_ref(table, *ev), "plain"),
+                (jax_route(jtable, *[jnp.asarray(a) for a in events]), "jax"))
+    else:  # an empty sub-batch, which both plain versions refuse: nothing is routed
+        refs = ((table, "the input"),)
     for k in kre.RING + ("ev_count", "counter"):
         a = got[k].numpy()
-        for b, what in ((getattr(ref, k).numpy(), "plain"), (np.asarray(getattr(jref, k)), "jax")):
+        for ref, what in refs:
+            b = np.asarray(getattr(ref, k))
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (name, k, what)
     np.testing.assert_array_equal(table.ev_t.numpy(), fields["ev_t"])  # input not written
     return got, table
@@ -189,13 +238,70 @@ def test_route_events_kernel_matches_plain_and_jax(re_lib, name):
         assert n_hit[1] == n_hit[4] == 0 and n_hit.sum() > 0
     if name == "at_12px":
         assert n_hit.sum() > 0
+    if name in ("one_patch", "p_1", "n_5001"):
+        assert n_hit[0] > tps.MAX_EVENTS and n_hit[1:].sum() == 0
+    if name == "dead_between":
+        assert (n_hit[[1, 3, 4]] == 0).all() and (n_hit[[0, 2, 5]] > tps.MAX_EVENTS).all()
+    if name == "n_70000":
+        assert (n_hit > tps.MAX_EVENTS).all()
 
 
 def test_route_events_kernel_with_two_warps(tmp_path):
-    """The 64-thread build with runs of 16 (chunks of 1,024 events, so eight
-    chunks, each a block scan across the warps) on the wrapped rings."""
+    """The 64-thread build in clusters of four and one pass (the block
+    scans across the warps) on the wrapped rings."""
     lib = _compile(tmp_path, "route_events", kre._SIGNATURES, *TWO_WARPS["route_events"])
     _check_route(lib, "wrapped", seed=1)
+
+
+def test_route_events_kernel_with_two_warps_in_chunks(tmp_path):
+    """The 64-thread build in clusters of four taking 2,048 events a pass:
+    the counting pass's block scan across the warps, on the hits that
+    straddle the chunks."""
+    lib = _compile(tmp_path, "route_events", kre._SIGNATURES, *TWO_WARPS["route_events"],
+                   "-DEVO_RE_CHUNK=2048")
+    _check_route(lib, "straddle", seed=1)
+
+
+def test_route_events_clock_build_keeps_the_bits(tmp_path, re_lib):
+    """The clock build (-DEVO_RE_CLOCKS): the plain build's rings and
+    counts, and each block's stages add up to its total."""
+    clock = _compile(tmp_path, "route_events", kre._SIGNATURES, *RE_BUILD, "-DEVO_RE_CLOCKS")
+    fields, events = route_case("wrapped", np.random.default_rng(2))
+    table, _ = _tables(fields)
+    ev = [torch.from_numpy(a) for a in events]
+    clk = torch.zeros((table.capacity, len(kre.STAGES)), dtype=torch.int64)
+    got = kre.run(clock.evo_route_events, ok, table, *ev, clocks=clk)
+    ref = kre.run(re_lib.evo_route_events, ok, table, *ev)
+    for k in kre.RING + ("ev_count", "counter"):
+        assert torch.equal(got[k], ref[k]), k
+    assert torch.equal(clk[:, :-1].sum(1), clk[:, -1]) and (clk[:, -1] > 0).all()
+    assert (clk >= 0).all()
+
+
+def test_route_events_kernel_refuses_a_ring_beyond_its_block(re_lib):
+    """A ring longer than `kernels.route_events.MAX_RING` slots (a block
+    holds an event index for each slot of its patch's ring) is refused
+    before a launch, and by the C entry itself; the longest ring it takes
+    is routed."""
+    import array
+
+    def never(*args):
+        raise AssertionError("launched")
+
+    ev = [torch.zeros(64), torch.zeros(64), torch.zeros(64), torch.zeros(64),
+          torch.ones(64, dtype=torch.bool)]
+    with pytest.raises(ValueError, match="rings of 1 to"):
+        kre.run(re_lib.evo_route_events, never, tps.empty_table(2, kre.MAX_RING + 1,
+                                                                 device="cpu"), *ev)
+    ptrs = array.array("Q", [0] * len(kre.POINTERS))
+    assert re_lib.evo_route_events(ptrs.buffer_info()[0], 2, kre.MAX_RING + 1, 64, None) != 0
+    table = tps.empty_table(2, kre.MAX_RING, device="cpu")
+    table = table.replace(alive=torch.ones(2, dtype=torch.bool),
+                          ev_count=torch.tensor([5, kre.MAX_RING - 3], dtype=torch.int32))
+    got = kre.run(re_lib.evo_route_events, ok, table, *ev)
+    ref = tps.route_events_ref(table, *ev)
+    for k in kre.RING + ("ev_count", "counter"):
+        assert torch.equal(got[k], getattr(ref, k)), k
 
 
 # ---- the entries ---------------------------------------------------------------

@@ -150,6 +150,60 @@ def _case_large():
                 slot_birth=rng.integers(-1, 60, n), corners=corners, ok=ok)
 
 
+def _case_chain(n=120, crowd_at=None):
+    """n live rows 8 px apart on a line, corner k 4.5 px right of row k: row
+    k lists corners k - 1 (3.5 px) and k, so each row shares a corner with
+    the next and the chain of claims runs through all n rows (the waves
+    reach n); row k claims corner k, and a corner left unclaimed would be
+    inserted into the free rows after them. `crowd_at`: ten more corners
+    within 0.25 px of that row, whose list then overflows in the middle of
+    the chain: it claims one of them, each row after it corner k - 1, and
+    corner n - 1 and nine of the crowd go into free rows."""
+    c = np.zeros((P, 2), np.float32)
+    c[:n] = np.stack([8.0 * np.arange(n) + 20.0, np.full(n, 50.0)], -1)
+    corners = np.stack([8.0 * np.arange(n) + 24.5, np.full(n, 50.0)], -1)
+    if crowd_at is not None:
+        ang = np.linspace(0, 2 * np.pi, 10, endpoint=False)
+        crowd = c[crowd_at] + 0.25 * np.stack([np.cos(ang), 1.0 + np.sin(ang)], -1)
+        corners = np.concatenate([corners, crowd])
+    corners, ok = _padded(corners, np.ones(len(corners), bool))
+    return dict(view=_table(np.arange(P) < n, c), slot_birth=np.full(P, -1), corners=corners,
+                ok=ok)
+
+
+def _case_shared_corners():
+    """Groups of four rows within 1 px of each other around six corners
+    within 2 px: every row of a group lists all six, so each row waits on
+    the rows before it in its group; the groups interleave in row order."""
+    rng = np.random.default_rng(8)
+    hubs = np.array([[40.0, 40.0], [120.0, 60.0], [200.0, 140.0], [60.0, 150.0]])
+    c = _grid_centres(P, 8)
+    rows = np.arange(16)  # row r in group r % 4
+    c[rows] = hubs[rows % 4] + rng.uniform(-1, 1, (16, 2))
+    corners = np.concatenate([h + rng.uniform(-2, 2, (6, 2)) for h in hubs])
+    corners, ok = _padded(corners, np.ones(len(corners), bool))
+    return dict(view=_table(np.arange(P) < 16, c), slot_birth=np.full(P, -1), corners=corners,
+                ok=ok)
+
+
+def _case_equal_across_rows():
+    """Rows 10 and 11 at 2 px either side of corner 0: the earlier row
+    claims it and row 11 takes corner 1, farther; rows 20 and 21 each have
+    corners 2 and 3 at equal distances (row 20 both at 3 px, the lower index
+    wins; row 21 takes the other); row 30 and row 31 tie on corner 4 with a
+    NaN-free zero distance; corners 5 and 6 lie out of reach and are
+    inserted."""
+    c = _grid_centres(P, 9)
+    c[10], c[11] = (100.0, 100.0), (104.0, 100.0)
+    c[20], c[21] = (150.0, 50.0), (150.0, 52.0)
+    c[30], c[31] = (30.0, 150.0), (30.0, 150.0)
+    corners, ok = _padded(np.array([[102.0, 100.0], [107.0, 100.0], [147.0, 50.0],
+                                    [153.0, 50.0], [30.0, 150.0], [200.0, 20.0],
+                                    [10.0, 10.0]]), np.ones(7, bool))
+    return dict(view=_table([k in (10, 11, 20, 21, 30, 31) for k in range(P)], c),
+                slot_birth=np.full(P, -1), corners=corners, ok=ok)
+
+
 POLICY_CASES = {
     **{f"random{k}": (lambda k=k, kw=kw: _case_random(k, **kw), {}) for k, kw in enumerate(
         [{}, {}, dict(n_alive=70, n_corners=100), dict(n_alive=5, n_corners=30),
@@ -162,13 +216,21 @@ POLICY_CASES = {
     "list_overflow": (_case_crowded, dict(association_distance=60.0)),
     "threshold_above_mask": (_case_crowded, dict(association_distance=1.8446e19)),
     "large": (_case_large, dict(max_patches=150)),
+    "chain": (_case_chain, dict(max_patches=200)),
+    "overflow_in_chain": (lambda: _case_chain(100, crowd_at=64), dict(max_patches=200)),
+    "shared_corners": (_case_shared_corners, {}),
+    "equal_across_rows": (_case_equal_across_rows, {}),
 }
+
+
+# the cases' patches and events where they differ from 6 and 8,192
+ROUTE_SHAPES = {"n_5001": (6, 5001), "n_0": (6, 0), "p_1": (1, 8192), "n_70000": (6, 70000)}
 
 
 def route_case(name, rng):
     """(table fields as numpy, events ex, ey, et, ep, mask) of a case."""
-    p, e = 6, tps.MAX_EVENTS
-    n = 8192  # 4,096 k, as a dense window's sub-batches
+    e = tps.MAX_EVENTS
+    p, n = ROUTE_SHAPES.get(name, (6, 8192))  # 4,096 k, as a dense window's sub-batches
     alive = np.ones(p, bool)
     center = np.stack([rng.uniform(30, 210, p), rng.uniform(30, 150, p)], -1).astype(np.float32)
     ev_count = rng.integers(0, 400, p).astype(np.int32)
@@ -202,6 +264,30 @@ def route_case(name, rng):
         ey[::2] = center[[1, 4] * (n // 4), 1][: len(ey[::2])]
     if name == "n_4096k":  # a bucket's padding after its events
         mask[7000:] = False
+    if name == "straddle":  # patch 0's hits on both sides of each 32-event word's edge and
+        # of the 2,048-event chunks of the emulated build
+        k = np.arange(n)
+        edge = (k % 32 >= 29) | (k % 32 <= 2) | (np.abs(k % 2048 - 1024) > 1020)
+        ex[edge] = center[0, 0] + rng.integers(-12, 13, int(edge.sum()))
+        ey[edge] = center[0, 1] + rng.integers(-12, 13, int(edge.sum()))
+    if name in ("n_5001", "p_1", "one_patch"):  # every event in patch 0's rect: more
+        # than E hits, and for P = 1 the cluster's other blocks without a patch
+        ex[:] = center[0, 0] + rng.integers(-12, 13, n)
+        ey[:] = center[0, 1] + rng.integers(-12, 13, n)
+        mask[::7] = False
+    if name == "dead_between":  # live patches 0, 2, 5 on top of dead 1, 3, 4
+        alive[[1, 3, 4]] = False
+        center[[1, 3, 4]] = center[[0, 2, 5]] + 1.0
+        ex[:] = center[np.arange(n) % p, 0] + rng.integers(-10, 11, n)
+        ey[:] = center[np.arange(n) % p, 1] + rng.integers(-10, 11, n)
+    if name == "n_70000":  # above the card's chunk of 65,536 events: every patch's hits
+        # in both chunks, patch 0's kept hits straddling the chunks' boundary
+        for k in range(p):
+            ex[k::p] = center[k, 0] + rng.integers(-12, 13, len(ex[k::p]))
+            ey[k::p] = center[k, 1] + rng.integers(-12, 13, len(ey[k::p]))
+        tail = np.arange(n) >= 65536 + 150  # no hit of patch 0 from here: moved outside
+        ex[tail & (np.abs(ex - center[0, 0]) <= 12) & (np.abs(ey - center[0, 1]) <= 12)] = 500.0
+        mask[::11] = False
     fields = dict(alive=alive, center=center, ev_count=ev_count,
                   counter=rng.integers(0, 40, p).astype(np.int32),
                   **{k: rng.random((p, e)).astype(np.float32)
@@ -211,4 +297,5 @@ def route_case(name, rng):
     return fields, (ex, ey, et, ep, mask)
 
 
-ROUTE_CASES = ("over_320", "wrapped", "padded", "at_12px", "dead", "n_4096k")
+ROUTE_CASES = ("over_320", "wrapped", "padded", "at_12px", "dead", "n_4096k", "straddle",
+               "n_5001", "n_0", "p_1", "one_patch", "dead_between", "n_70000")
